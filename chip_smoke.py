@@ -3,24 +3,49 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. device   the card's name and power limit, torch/CUDA versions, native
-              Poseidon2 availability;
-  2. build    nvcc builds latticeum_tpu_torch/csrc into the kernel library;
-  3. kernels  each of the four comb kernels against its plain-torch twin on
+  1. device   the card's name, power limit and SM clock, torch/CUDA
+              versions; the port's native Poseidon2 core (host reference of
+              the trees) must build;
+  2. build    nvcc builds latticeum_tpu_torch/csrc into the kernel library
+              (one nvcc per source, all at once, then one link); the SASS
+              of perm8 and of one field operation (probe kernels) counted
+              for the bounds;
+  3. tree     the perm8 kernel against its plain-torch twin on the card,
+              exact, at n = 64 to 524288, timed from 1024 up by events, a
+              CUDA graph and torch.profiler (the record at 8192); then the
+              memory roots of new_vm_1mb() and new_vm_8mb() loaded with
+              xorshift_guest(64), and the code root, built on the card
+              through perm8, against the host copy's native tree, with both
+              times;
+  4. kernels  each of the four comb kernels against its plain-torch twin on
               the card, exact integer equality, at a small shape and at the
               production round shape, with kernel and twin times;
-  4. small    two chained folds of the port on the card against the host
+  5. small    two chained folds of the port on the card against the host
               NIFS on the test CCS (transcript, proofs, accumulator);
-  5. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+  6. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
               xorshift_guest(64) with acc_comm[0] pinned after each step,
               then 2 steps of the bench's fib guest; every fold of both
               passes the host NIFS verifier with the same folded
-              accumulator; launch counts of every kernel > 0.
-  6. replay   the same 3 xorshift steps with the JAX package's stale
+              accumulator; launch counts of every kernel (perm8 included:
+              the memory and code trees of each prove_vm) > 0;
+  7. replay   the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9) must give the
               acc_comm[0] values that package recorded on its TPU.
 Then one JSON line of kernel records, the nvidia-smi name/power line, and
-the result line {"ok": true, "device": {...}}.  Imports no jax.
+the result line {"ok": true, "device": {...}}.  Imports no jax and nothing
+of the JAX package.
+
+Each kernel record carries its bound: the largest of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s, its
+IMAD instructions over the FMA pipe's 64 per SM per clock, its integer
+ALU instructions (IADD3, LOP3, ISETP, SEL, SHF, ...) over the ALU pipe's
+64 per SM per clock, and all its instructions over the issue rate of 128
+per SM per clock (4 schedulers x 32 lanes), at the SM clock nvidia-smi
+reports as its maximum.  The instructions are counted in SASS with
+cuobjdump: perm8_kernel is straight-line code, so its own SASS is its
+count per state; the comb kernels loop, so their count is the field
+operations of their bodies (from the shapes) times each operation's SASS,
+counted in probe kernels that chain that operation of csrc/field.cuh.
 """
 
 import contextlib
@@ -43,6 +68,49 @@ TPU_XORSHIFT_ACC0 = (0x50aa97463269fda, 0x9cb88707da63ca3,
                      0xa7645c9dd3011f93)
 FIB_RESULT = 0xC594BFC3
 
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# Per SM per clock on Hopper (sm_90): 64 lanes each for the FMA pipe's
+# integer multiply-adds and for the integer ALU, and one warp instruction
+# per scheduler, 4 x 32 thread instructions, issued.
+PIPE_LANES, ISSUE_LANES = 64, 128
+ALU_OPS = {"IADD3", "LOP3", "ISETP", "SEL", "SHF", "LEA", "PRMT", "IMNMX",
+           "IABS", "PLOP3", "BMSK", "SGXT", "FLO", "POPC", "BREV"}
+CLASSES = ("fma", "alu", "total")
+# Probe kernels, one per field operation of csrc/field.cuh: two values
+# loaded, CHAIN dependent steps of two operations each, two stored.
+# (probe_op - probe_none) / (2 CHAIN) is one operation's SASS.
+CHAIN = 64
+PROBE_SRC = r"""
+#include "field.cuh"
+using namespace lt;
+#define PROBE(name, step)                                                 \
+  extern "C" __global__ void probe_##name(const u64 *a, u64 *o) {         \
+    const int i = threadIdx.x;                                            \
+    Fq3 x{a[i], a[i + 32], a[i + 64]}, y{a[i + 96], a[i + 128], a[i + 160]}; \
+    _Pragma("unroll") for (int k = 0; k < CHAIN; ++k) { step; }           \
+    o[i] = x.c0; o[i + 32] = x.c1; o[i + 64] = x.c2;                      \
+    o[i + 96] = y.c0; o[i + 128] = y.c1; o[i + 160] = y.c2;               \
+  }
+PROBE(none, )
+PROBE(add, x.c0 = gl_add(x.c0, y.c0); y.c0 = gl_add(y.c0, x.c0))
+PROBE(sub, x.c0 = gl_sub(x.c0, y.c0); y.c0 = gl_sub(y.c0, x.c0))
+PROBE(mul, x.c0 = gl_mul(x.c0, y.c0); y.c0 = gl_mul(y.c0, x.c0))
+PROBE(mul_w, x.c0 = gl_mul_w(y.c0); y.c0 = gl_mul_w(x.c0))
+PROBE(fq3_mul, x = fq3_mul(x, y); y = fq3_mul(y, x))
+PROBE(fq3_square, x = fq3_square(y); y = fq3_square(x))
+"""
+PROBE_OPS = ("add", "sub", "mul", "mul_w", "fq3_mul", "fq3_square")
+MUL3, SQR3 = {"fq3_mul": 1}, {"fq3_square": 1}
+ADD3, SUB3 = {"add": 3}, {"sub": 3}
+# One permutation of csrc/poseidon2.cu: 8 x 4 x 8 + 22 x (4 + 8) gl_mul;
+# 9 x 34 (mds_light8) + 64 + 22 x 16 gl_add.
+PERM8_OPS = {"mul": 520, "add": 722}
+TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
+               "fold_roundr": "latticeum_tpu/zkvm/pallas_comb.py:176",
+               "lin_round0": "latticeum_tpu/zkvm/pallas_comb.py:317",
+               "lin_roundr": "latticeum_tpu/zkvm/pallas_comb.py:365",
+               "perm8": "latticeum_tpu/parallel/pallas_kernels.py:109"}
+
 
 def log(msg):
     print(msg, flush=True)
@@ -57,6 +125,15 @@ def fail(msg):
     sys.exit(1)
 
 
+def smi(query):
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        fail(f"nvidia-smi --query-gpu={query}: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -66,27 +143,36 @@ def main():
     import numpy as np
 
     from latticeum_tpu_torch import kernels
+    from latticeum_tpu_torch.crypto import poseidon2
     from latticeum_tpu_torch.field import goldilocks as gl
+    from latticeum_tpu_torch.host.crypto import native
     from latticeum_tpu_torch.zkvm import comb
 
     dev = torch.device("cuda")
 
     phase("device")
-    smi = subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
-        "nvidia-smi unavailable"
+    if card.returncode != 0:
+        fail("nvidia-smi does not read the card")
+    card = card.stdout.strip().splitlines()[0]
+    sm_mhz = float(smi("clocks.max.sm"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = {"bytes": HBM_BYTES_PER_S,
+            "pipe": sms * PIPE_LANES * sm_mhz * 1e6,
+            "issue": sms * ISSUE_LANES * sm_mhz * 1e6}
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | "
         f"count={torch.cuda.device_count()} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    from latticeum_tpu.crypto import native
-    try:
-        native._build()                 # this host's -march=native build
-        log("native poseidon2: rebuilt for this host")
-    except (OSError, subprocess.CalledProcessError) as exc:
-        log(f"native poseidon2: rebuild failed ({exc!r})")
-    log(f"native poseidon2 available: {native.available()}")
+    log(f"rates: {sms} SMs x {sm_mhz:.0f} MHz: FMA and ALU pipes "
+        f"{rate['pipe']:.4g}/s each ({PIPE_LANES} lanes), issue "
+        f"{rate['issue']:.4g}/s ({ISSUE_LANES} lanes); HBM "
+        f"{HBM_BYTES_PER_S:.4g} bytes/s")
+    if not native.available():
+        fail("the host copy's native Poseidon2 core did not build")
+    log("native poseidon2 (host reference): built into "
+        f"{os.path.relpath(native._lib_path(), ROOT)}")
 
     phase("build")
     t0 = time.time()
@@ -97,11 +183,29 @@ def main():
     for line in out.splitlines():
         if "spill" in line and not line.strip().startswith("0 bytes"):
             log(f"  ptxas: {line.strip()}")
+    mix = probe_mix(kernels)
+    for op in PROBE_OPS:
+        log(f"SASS of one {op}: " + ", ".join(
+            f"{c} {mix[op][c]:.2f}" for c in CLASSES))
+    perm8_sass = [v for k, v in sass_by_pipe(kernels, so).items()
+                  if "perm8_kernel" in k]
+    if len(perm8_sass) != 1:
+        fail("perm8_kernel not found once in the library's SASS")
+    perm8_sass = perm8_sass[0]
+    model = pipes(PERM8_OPS, mix)
+    log("perm8_kernel SASS per state: " + ", ".join(
+        f"{c} {perm8_sass[c]}" for c in CLASSES) + "; its 520 gl_mul and "
+        "722 gl_add at the probes' SASS: " + ", ".join(
+            f"{c} {model[c]:.0f}" for c in CLASSES))
+
+    phase("tree")
+    records = [tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass)]
 
     phase("build prover")
-    from latticeum_tpu.vm.assembler import fib_const_guest, xorshift_guest
-    from latticeum_tpu.vm.vm import new_vm_1mb
-    from latticeum_tpu.zkvm.params import default_params
+    from latticeum_tpu_torch.host.vm.assembler import (fib_const_guest,
+                                                       xorshift_guest)
+    from latticeum_tpu_torch.host.vm.vm import new_vm_1mb
+    from latticeum_tpu_torch.host.zkvm.params import default_params
     from latticeum_tpu_torch.zkvm.prover import TorchZkVmProver
     t0 = time.time()
     prover = TorchZkVmProver(default_params(), device="cuda")
@@ -113,7 +217,7 @@ def main():
     if prover.dn._lin_sets is None:
         fail("the CCS lin constants are not all +-1")
     records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
-                            dev)
+                            dev, rate, mix) + records
 
     phase("small reference")
     small_reference(torch, dev)
@@ -121,12 +225,14 @@ def main():
     phase("main path")
     folds = record_folds(prover)
     comb.reset_launches()
+    poseidon2.perm8.launches = 0
     torch.cuda.reset_peak_memory_stats()
     xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
                "xorshift_guest(64)", torch)
     prove(prover, new_vm_1mb().load_elf_data(
         fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
     launches = {w.__name__: w.launches for w in comb.WRAPPERS}
+    launches["perm8"] = poseidon2.perm8.launches
     del prover.fold                     # drop the recording wrapper
     log(f"launches on the main path: {launches}")
     if not all(v > 0 for v in launches.values()):
@@ -144,8 +250,11 @@ def main():
         replay = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)),
                        3, "xorshift_guest(64), stale lin betas", torch)
     check_acc0("xorshift replay", replay["acc0"], TPU_XORSHIFT_ACC0)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    leaked = sorted(m for m in sys.modules if m == "jax"
+                    or m.startswith(("jax.", "latticeum_tpu."))
+                    or m == "latticeum_tpu")
+    if leaked:
+        fail(f"imported {leaked[:5]}")
     for r in records:
         r["launches"] = launches[r["name"]]
 
@@ -170,9 +279,240 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev):
-    """Every kernel against its twin: small shape, then production shape
-    (timed).  Returns the kernel records (launches filled in later)."""
+def graph_ms(torch, fn, reps):
+    """Device time per call of `fn`: `reps` calls captured in a CUDA graph
+    and replayed, so no host work lies between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, g.replay, 5) / reps
+
+
+def profiled_ms(torch, fn, reps, kernel):
+    """Mean duration of the launches of `kernel` (a substring of its name)
+    that torch.profiler traces over `reps` calls of `fn`, or None where the
+    trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for row in prof.key_averages():
+        if kernel in row.key and row.count:
+            total = getattr(row, "device_time_total", None)
+            if total is None:
+                total = row.cuda_time_total
+            return total / row.count / 1e3
+    return None
+
+
+def sass_by_pipe(kernels, binary):
+    """{function: {"fma", "alu", "total"}}: the SASS instructions of every
+    function in `binary` (cuobjdump of the toolkit that built the kernels),
+    up to its last EXIT and without NOPs.  IMAD/IMUL go to the FMA pipe,
+    ALU_OPS to the integer ALU; "total" counts every instruction."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(binary)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {binary}: {res.stderr.strip()}")
+    funcs, ops = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            ops = funcs.setdefault(line.split("Function :")[1].strip(), [])
+        elif ops is not None and line.strip().startswith("/*") and ";" in line:
+            words = line.split("*/", 1)[1].split()
+            if words[0].startswith("@"):
+                words = words[1:]
+            ops.append(words[0].rstrip(";").split(".")[0])
+    out = {}
+    for name, ops in funcs.items():
+        last = max(i for i, op in enumerate(ops) if op == "EXIT")
+        ops = [op for op in ops[:last + 1] if op != "NOP"]
+        out[name] = {
+            "fma": sum(op in ("IMAD", "IMUL") for op in ops),
+            "alu": sum(op in ALU_OPS for op in ops), "total": len(ops)}
+    return out
+
+
+def probe_mix(kernels):
+    """{op: {"fma", "alu", "total"}}: the SASS of one field operation of
+    csrc/field.cuh, from probe kernels built with the kernels' flags."""
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    src = kernels.BUILD_DIR / f"sass_probe.{os.getpid()}.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(PROBE_SRC)
+    try:
+        res = subprocess.run(
+            [kernels.nvcc(), "-cubin", *kernels.ARCH_FLAGS, f"-DCHAIN={CHAIN}",
+             "-I", str(kernels.CSRC), "-o", str(cubin), str(src)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            fail(f"the SASS probe did not build: {res.stdout}{res.stderr}")
+        sass = sass_by_pipe(kernels, cubin)
+    finally:
+        src.unlink(missing_ok=True)
+        cubin.unlink(missing_ok=True)
+    base = sass["probe_none"]
+    return {op: {c: (sass[f"probe_{op}"][c] - base[c]) / (2 * CHAIN)
+                 for c in CLASSES} for op in PROBE_OPS}
+
+
+def tally(*terms):
+    """Sum of (times, {op: count}) terms -> {op: count}."""
+    out = {}
+    for times, counts in terms:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + times * v
+    return out
+
+
+def pipes(ops, mix):
+    """{"fma", "alu", "total"} instructions of the field operations `ops`."""
+    return {c: sum(n * mix[op][c] for op, n in ops.items()) for c in CLASSES}
+
+
+def fold_ops(rows, q, npts, b_small, fold):
+    """Field operations of one fold comb launch (csrc/comb.cu fold_body)."""
+    pt0 = 0 if fold else 2
+    ev = (npts - pt0) * (b_small - 1)
+    per_row = tally((1, SUB3), (2, MUL3), (2 * npts, ADD3),
+                    (npts - pt0, SQR3), (npts - pt0, ADD3), (ev, MUL3),
+                    (ev, {"sub": 1}))
+    if fold:
+        per_row = tally((1, per_row), (2, SUB3), (2, MUL3), (2, ADD3))
+    return tally((8 * q * rows, per_row), (8 * q * npts, MUL3))
+
+
+def lin_ops(sets, q, npts, fold):
+    """Field operations of one lin comb launch (csrc/comb.cu lin_body)."""
+    terms = [(npts, MUL3)]
+    for s in sets.S:
+        k = len(s)
+        terms += [(k, SUB3), (k * npts, ADD3), ((k - 1) * npts, MUL3),
+                  (npts, ADD3)]
+        if fold:
+            terms += [(2 * k, SUB3), (2 * k, MUL3), (2 * k, ADD3)]
+    return tally((8 * q, tally(*terms)),)
+
+
+def bound(rate, nbytes, work):
+    """(ms, 'bytes' or 'operations', limit): the least time the card could
+    take, and which of the four limits sets it."""
+    times = {"bytes": nbytes / rate["bytes"],
+             "fma": work["fma"] / rate["pipe"],
+             "alu": work["alu"] / rate["pipe"],
+             "issue": work["total"] / rate["issue"]}
+    limit = max(times, key=times.get)
+    return (times[limit] * 1e3, "bytes" if limit == "bytes" else "operations",
+            limit)
+
+
+def record(name, source, worst, ms, plain_ms, rate, nbytes, work):
+    b_ms, by, limit = bound(rate, nbytes, work)
+    log(f"{name}: bound {b_ms:.4f} ms by {limit} ({nbytes} bytes; "
+        + ", ".join(f"{c} {work[c]:.4g}" for c in CLASSES)
+        + f" instructions); kernel at {100 * b_ms / ms:.1f} % of it")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": TPU_KERNELS[name], "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def u64_err(gl, np, a, b):
+    """Largest |a - b| over the outputs, read as u64 (0 = bit-exact)."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    worst = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            raise SystemExit(f"FAIL: shapes {tuple(x.shape)} != "
+                             f"{tuple(y.shape)}")
+        u, v = gl.to_u64(x), gl.to_u64(y)
+        if u.size:
+            worst = max(worst, int(np.where(u > v, u - v, v - u).max()))
+    return worst
+
+
+def tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass):
+    """perm8 against its twin, then the memory and code roots built on the
+    card against the host copy's native tree.  Returns perm8's record."""
+    from latticeum_tpu_torch.host.vm.assembler import xorshift_guest
+    from latticeum_tpu_torch.host.vm.vm import new_vm_1mb, new_vm_8mb
+    from latticeum_tpu_torch.host.zkvm import commitments as host_comm
+    from latticeum_tpu_torch.zkvm.commitments import ZkVmCommitter
+
+    rng = np.random.default_rng(11)
+    edges = np.array([0, 1, 2, 0xFFFFFFFF, 1 << 32, gl.P - 1], np.uint64)
+    worst = 0
+    # 1024 and 8192 are the leaf absorbs of the 1 MB and 8 MB trees; the
+    # larger n show how the time per state falls once the card fills.
+    for n in (64, 1024, 8192, 65536, 524288):
+        u = rng.integers(0, gl.P, (n, 8), dtype=np.uint64)
+        u.reshape(-1)[:edges.size] = edges
+        x = torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+        got = poseidon2.perm8(x)
+        want = poseidon2.perm8_twin(x)
+        torch.cuda.synchronize()
+        e = u64_err(gl, np, got, want)
+        worst = max(worst, e)
+        log(f"perm8 n={n}: "
+            f"{'bit-exact' if e == 0 else f'MISMATCH max_abs_err={e}'}")
+        if e:
+            fail("perm8 disagrees with its twin")
+        if n < 1024:
+            continue
+        fn = lambda: poseidon2.perm8(x)     # noqa: E731
+        events, graph = cuda_ms(torch, fn, 50), graph_ms(torch, fn, 50)
+        prof = profiled_ms(torch, fn, 50, "perm8_kernel")
+        b_ms = bound(rate, 2 * 64 * n,
+                     {c: perm8_sass[c] * n for c in CLASSES})[0]
+        log(f"perm8 n={n} per launch: {events:.4f} ms (events around 50 "
+            f"calls), {graph:.4f} ms (CUDA graph of 50), "
+            + (f"{prof:.4f} ms (profiler, kernel mean)" if prof is not None
+               else "profiler: not measured")
+            + f"; bound {b_ms:.4f} ms, {100 * b_ms / graph:.1f} % of it")
+        if n == 8192:
+            x8192, ms = x, graph
+    plain_ms = cuda_ms(torch, lambda: poseidon2.perm8_twin(x8192), 3)
+    log(f"perm8 n=8192: kernel {ms:.4f} ms (CUDA graph of 50), twin "
+        f"{plain_ms:.3f} ms (mean of 3)")
+    rec = record("perm8", "latticeum_tpu_torch/csrc/poseidon2.cu", worst, ms,
+                 plain_ms, rate, 2 * 64 * 8192,
+                 {c: perm8_sass[c] * 8192 for c in CLASSES})
+
+    committer, host = ZkVmCommitter(dev), host_comm.ZkVmCommitter()
+    for label, make in (("1 MB", new_vm_1mb), ("8 MB", new_vm_8mb)):
+        vm = make().load_elf_data(xorshift_guest(64))
+        times = []
+        for _ in range(2):              # the first call includes the upload
+            torch.cuda.synchronize()
+            t0 = time.time()
+            root = committer.vm_mem_comm(vm)
+            times.append(time.time() - t0)
+        t0 = time.time()
+        want = host.vm_mem_comm(vm)
+        t_host = time.time() - t0
+        log(f"memory root {label} ({vm.page_count} pages): card "
+            f"{times[0]:.4f} s, again {times[1]:.4f} s; host native "
+            f"{t_host:.4f} s; {'equal' if root == want else 'DIFFERENT'}")
+        if root != want:
+            fail(f"the {label} memory root built on the card differs")
+        code = vm.elf.raw_code.bytes
+        if committer.vm_code_comm(code) != host.vm_code_comm(code):
+            fail("the code root built on the card differs")
+    log("code root (xorshift_guest(64)): equal")
+    return rec
+
+
+def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
+    """Every comb kernel against its twin: small shape, then production
+    shape (timed).  Returns the kernel records (launches filled in later)."""
     rng = np.random.default_rng(7)
 
     def rnd(*shape):
@@ -181,18 +521,6 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev):
 
     def r3():
         return [int(v) for v in rng.integers(0, gl.P, 3, dtype=np.uint64)]
-
-    def err(a, b):
-        """Largest |a - b| over the outputs, read as u64 (0 = bit-exact)."""
-        a = a if isinstance(a, tuple) else (a,)
-        b = b if isinstance(b, tuple) else (b,)
-        worst = 0
-        for x, y in zip(a, b):
-            if torch.equal(x, y):
-                continue
-            u, v = gl.to_u64(x), gl.to_u64(y)
-            worst = max(worst, int(np.where(u > v, u - v, v - u).max()))
-        return worst
 
     sets_small = comb.lin_sets([(0, 3, 5), (1,), (2, 4)], (1, -1, 1), 6, dev)
     deg_q = ccs.d + 1
@@ -217,8 +545,6 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev):
                      sets_prod, deg_q)),
     }
     records = []
-    replaces = {"fold_round0": 117, "fold_roundr": 176, "lin_round0": 317,
-                "lin_roundr": 365}
     for w in comb.WRAPPERS:
         twin = comb.TWINS[w]
         small, prod = cases[w.__name__]
@@ -228,38 +554,48 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev):
             got = w(*args)
             want = twin(*args)
             torch.cuda.synchronize()
-            e = err(got, want)
+            e = u64_err(gl, np, got, want)
             worst = max(worst, e)
             shape = tuple(args[0].shape)
             log(f"{w.__name__} {label} X{shape}: "
                 f"{'bit-exact' if e == 0 else f'MISMATCH max_abs_err={e}'}")
             if e:
-                raise SystemExit(f"FAIL: {w.__name__} disagrees with its twin")
+                fail(f"{w.__name__} disagrees with its twin")
         ms = cuda_ms(torch, lambda: w(*args), 5)
         plain_ms = cuda_ms(torch, lambda: twin(*args), 1)
         log(f"{w.__name__} production: kernel {ms:.3f} ms, twin "
             f"{plain_ms:.3f} ms")
-        records.append({
-            "name": w.__name__, "route": "cuda",
-            "source": "latticeum_tpu_torch/csrc/comb.cu",
-            "replaces": f"latticeum_tpu/zkvm/pallas_comb.py:"
-                        f"{replaces[w.__name__]}",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms})
-        del args
+        X = args[0]
+        rows, width = X.shape[0], X.shape[-1]
+        fold = w.__name__.endswith("roundr")
+        q = width // (4 if fold else 2)
+        if w.__name__.startswith("fold"):
+            npts = 2 * b_small
+            nbytes = 8 * (X.numel() + 24 * q + 3 * rows + npts * 24)
+            ops = fold_ops(rows, q, npts, b_small, fold)
+        else:
+            npts = deg_q
+            nbytes = 8 * (X.numel() + 24 * q + npts * 24)
+            ops = lin_ops(sets_prod, q, npts, fold)
+        if fold:
+            nbytes += 8 * rows * 24 * 2 * q      # the folded F written
+        records.append(record(w.__name__, "latticeum_tpu_torch/csrc/comb.cu",
+                              worst, ms, plain_ms, rate, nbytes,
+                              pipes(ops, mix)))
+        del args, X
         torch.cuda.empty_cache()
     return records
 
 
 def small_reference(torch, dev):
     """Two chained folds of TorchNifs on the card vs the host NIFS."""
-    from latticeum_tpu.commit.ajtai import AjtaiScheme
-    from latticeum_tpu.crypto.transcript import Transcript
-    from latticeum_tpu.field import goldilocks as glr, host as H
-    from latticeum_tpu.nifs import linearization as lin, nifs
-    from latticeum_tpu.nifs.nifs import DecompositionParams
-    from latticeum_tpu.nifs.structs import CCCS, Witness
-    from latticeum_tpu.nifs.test_fixtures import (
+    from latticeum_tpu_torch.host.commit.ajtai import AjtaiScheme
+    from latticeum_tpu_torch.host.crypto.transcript import Transcript
+    from latticeum_tpu_torch.host.field import goldilocks as glr, host as H
+    from latticeum_tpu_torch.host.nifs import linearization as lin, nifs
+    from latticeum_tpu_torch.host.nifs.nifs import DecompositionParams
+    from latticeum_tpu_torch.host.nifs.structs import CCCS, Witness
+    from latticeum_tpu_torch.host.nifs.test_fixtures import (
         TEST_B, TEST_B_SMALL, TEST_K, TEST_L, get_test_ccs, get_test_z,
         z_to_device)
     from latticeum_tpu_torch.zkvm.accel import Engine
@@ -294,7 +630,7 @@ def small_reference(torch, dev):
                                   dn.build_witness(e.put(wit.w_ccs)), td)
         if (list(th.ch.state) != list(td.ch.state) or ph != pd
                 or acc_h != acc_d):
-            raise SystemExit(f"FAIL: small fold {i} differs from the host NIFS")
+            fail(f"small fold {i} differs from the host NIFS")
     log("small reference: 2 chained folds match the host NIFS (transcript, "
         "proofs, accumulator)")
 
@@ -352,10 +688,10 @@ def prove(prover, vm, steps, name, torch):
             f"acc_comm[0]={state.acc_comm[0]:#x}")
     state = prover.prove_vm(vm, max_steps=steps, on_step=on_step)
     if state.steps != steps:
-        raise SystemExit(f"FAIL: {name} folded {state.steps} of {steps} steps")
+        fail(f"{name} folded {state.steps} of {steps} steps")
     if len(state.acc_comm) != 4 or not all(
             0 <= int(v) < (1 << 64) for v in state.acc_comm):
-        raise SystemExit(f"FAIL: {name} acc_comm malformed")
+        fail(f"{name} acc_comm malformed")
     phases = {k: [round(v, 3) for v in vs] for k, vs in prover.timings.items()}
     log(f"{name} phase seconds: {json.dumps(phases)}")
     log(f"{name} max_memory_allocated: {torch.cuda.max_memory_allocated()} "

@@ -7,6 +7,11 @@ pairs, f_hat either in the standard layout (TAU, npad, 24) (host
 port keeps one int64 tensor per array and f_hat in the bit-reversed
 t-layout.  Each function here converts one piece of state and its inverse
 converts it back, so both packages can compute on the same inputs.
+
+Values are read by attribute (``r, v, cm, u, x_w, h`` of an LCCCS;
+``w_ccs, f_coeff, f, f_hat`` of a witness) as numpy arrays and ints, so an
+object of either package converts; what comes back is always the port's
+own (``host.nifs.structs``).
 """
 
 from __future__ import annotations
@@ -14,10 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from latticeum_tpu.nifs.structs import LCCCS, Witness
-
 from .field import goldilocks as gl
+from .host.nifs.structs import LCCCS, Witness
 from .zkvm.accel_nifs import TorchWitness, _brev
+
+_LCCCS_FIELDS = ("r", "v", "cm", "u", "x_w")
 
 
 def ajtai_rows(scheme, device=None):
@@ -54,11 +60,16 @@ def _fhat_t_to_std(f_hat):
     return f_hat[..., _brev(f_hat.shape[-1])].transpose(-1, -2).contiguous()
 
 
+def _limbs(x):
+    return (np.asarray(x[0]).astype(np.uint32),
+            np.asarray(x[1]).astype(np.uint32))
+
+
 def witness_to_torch(wit, device=None, t_layout=False):
     """Host ``Witness`` (t_layout=False) or ``DeviceWitness`` with a
     t-layout f_hat (t_layout=True) -> TorchWitness."""
     def put(x):
-        return gl.from_limbs((np.asarray(x[0]), np.asarray(x[1])), device)
+        return gl.from_limbs(_limbs(x), device)
     f_hat = put(wit.f_hat)
     if not t_layout:
         f_hat = _fhat_std_to_t(f_hat)
@@ -71,7 +82,14 @@ def witness_from_torch(wit):
                    gl.to_limbs(wit.f), gl.to_limbs(_fhat_t_to_std(wit.f_hat)))
 
 
-_LCCCS_FIELDS = ("r", "v", "cm", "u", "x_w")
+def _ints(rings):
+    return [[int(v) for v in ring] for ring in rings]
+
+
+def lcccs(acc):
+    """Any package's LCCCS (host ints) -> the port's ``LCCCS``."""
+    return LCCCS(**{k: _ints(getattr(acc, k)) for k in _LCCCS_FIELDS},
+                 h=[int(v) for v in acc.h])
 
 
 def lcccs_to_torch(acc, device=None):

@@ -1,10 +1,12 @@
-"""Build and bind the CUDA kernels of ``csrc/``.
+"""Build and bind the CUDA kernels of ``csrc/``, and the helpers every
+kernel wrapper shares.
 
-``nvcc`` compiles ``csrc/comb.cu`` for sm_90a into a shared library with a
-plain C interface, which ``ctypes`` loads.  The library is built at first use
-into ``_build/`` (listed in ``.gitignore``) under a name that carries the
-hash of the sources, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs at import.
+``nvcc`` compiles each source of ``SOURCES`` for sm_90a into an object, all
+at once in parallel, and links them into one shared library with a plain C
+interface, which ``ctypes`` loads.  The library is built at first use into
+``_build/`` (listed in ``.gitignore``) under a name that carries the hash of
+the sources, so an edited source is rebuilt and an unchanged one is loaded
+as it is.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -17,14 +19,18 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("comb.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("comb.cu", "poseidon2.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3")
+COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _lib = None
-build_info = {}    # seconds, command and compiler output of the last build
+build_info = {}    # seconds, commands and compiler output of the last build
 
 
 def source_hash() -> str:
@@ -33,7 +39,7 @@ def source_hash() -> str:
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -44,22 +50,44 @@ def nvcc() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    out = BUILD_DIR / f"libltcomb_{source_hash()}.so"
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first that
+    failed.  Returns the joined compiler output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels into `build_dir` unless a library for these
+    sources exists there."""
+    tag = source_hash()
+    out = build_dir / f"libltkernels_{tag}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    build_dir.mkdir(exist_ok=True)
+    pid = os.getpid()
+    objs = [build_dir / f"{Path(s).stem}_{tag}.{pid}.o" for s in SOURCES]
+    compile_cmds = [[nvcc(), *COMPILE_FLAGS, "-o", str(o), str(CSRC / s)]
+                    for s, o in zip(SOURCES, objs)]
+    tmp = out.with_suffix(f".{pid}.tmp")
+    link_cmd = [nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_info.update(seconds=time.time() - t0, command=" ".join(cmd),
-                      output=res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+    try:
+        output = _run_all(compile_cmds) + _run_all([link_cmd])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_info.update(seconds=time.time() - t0,
+                      command="\n".join(" ".join(c) for c in
+                                        compile_cmds + [link_cmd]),
+                      output=output)
     os.replace(tmp, out)
     return out
 
@@ -78,6 +106,7 @@ def lib():
         "lt_lin_round0": [vp] * 5 + [i32, vp, vp, i64, i32, vp],
         "lt_lin_roundr": [vp] * 6 + [i32, vp, vp, i64, u64, u64, u64, i32,
                                      vp],
+        "lt_perm8": [vp] * 3 + [i64, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)
@@ -91,3 +120,42 @@ def lib():
 
 def error_string(err: int) -> str:
     return lib().lt_error_string(err).decode()
+
+
+# -- shared by the kernel wrappers -------------------------------------------
+
+def check(name, t, shape):
+    """Raise unless `t` is a contiguous int64 tensor of `shape`."""
+    if t.dtype != torch.int64:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected int64")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def route(tensors):
+    """'cpu' (plain twin) or 'cuda' (kernel); all arguments on one device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"arguments on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def launch(fn_name, *args):
+    """Call a C entry point; raise if the cudaError it returns is not 0."""
+    err = getattr(lib(), fn_name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError {err} "
+                           f"({error_string(err)})")

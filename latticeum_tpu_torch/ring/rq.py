@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from latticeum_tpu.ring import ref_impl
-
 from ..field import fq3, goldilocks as gl
+from ..host.ring import ref_impl
 
 D = ref_impl.D
 N_SLOTS = ref_impl.N

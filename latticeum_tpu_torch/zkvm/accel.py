@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from latticeum_tpu.field import host as H
-
 from ..field import fq3, goldilocks as gl
+from ..host.field import host as H
 from ..ring import rq
 
 

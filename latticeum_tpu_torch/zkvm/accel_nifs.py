@@ -14,18 +14,48 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
-from latticeum_tpu.field import host as H
-from latticeum_tpu.nifs import decomposition as dec, folding as fold
-from latticeum_tpu.nifs import linearization as lin, nifs as nifs_mod
-from latticeum_tpu.nifs.structs import CCCS, LCCCS, TAU
-from latticeum_tpu.zkvm.accel_rounds import lin_c_signs
-from latticeum_tpu.zkvm.accel_t import bitrev_indices
-
 from ..field import goldilocks as gl
+from ..host.field import host as H
+from ..host.nifs import decomposition as dec, folding as fold
+from ..host.nifs import linearization as lin, nifs as nifs_mod
+from ..host.nifs.structs import CCCS, LCCCS, TAU
 from ..ring import decompose as dc, rq
 from . import accel_rounds, claims, comb
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:463
+def lin_c_signs(c_rings):
+    """If every lin comb constant is the +-1 scalar ring the zkvm builder
+    emits ([s, 0, 0] x 8 slots with s in {1, p-1}), return the sign tuple
+    for the lin comb kernels; else None."""
+    signs = []
+    for c in c_rings:
+        vals = [int(v) % gl.P for v in c]
+        if any(vals[i] != 0 for i in range(24) if i % 3 != 0):
+            return None
+        s0 = vals[0]
+        if any(vals[i] != s0 for i in range(0, 24, 3)):
+            return None
+        if s0 == 1:
+            signs.append(1)
+        elif s0 == gl.P - 1:
+            signs.append(-1)
+        else:
+            return None
+    return tuple(signs)
+
+
+# copied from latticeum_tpu/zkvm/accel_t.py:24
+def bitrev_indices(n_bits: int) -> np.ndarray:
+    n = 1 << n_bits
+    idx = np.arange(n)
+    out = np.zeros(n, dtype=np.int64)
+    for b in range(n_bits):
+        out |= ((idx >> b) & 1) << (n_bits - 1 - b)
+    return out
 
 
 def _brev(n):

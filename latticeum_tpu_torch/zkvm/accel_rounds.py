@@ -15,7 +15,7 @@ fixed-width phase.  When the lin stack is truncated (its width below
 rounds over a rebuilt eq table, exactly as the reference's truncated-MLE
 reconstruction (``accel_rounds.py:240-276``); those rounds are tiny and stay
 plain torch.  The host-side helpers (Lagrange extension, eqf weights, the
-transcript round) are the reference's own, imported as they are.
+transcript round, the reversed eq table) are copies of the reference's own.
 
 All arrays are t-layout (rows, 24, n) with a bit-reversed hypercube, so a
 round pairs the two contiguous halves.
@@ -23,19 +23,116 @@ round pairs the two contiguous halves.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from latticeum_tpu.field import host as H
-from latticeum_tpu.zkvm.accel_fs import _lagrange_ext_consts
-from latticeum_tpu.zkvm.accel_rounds import (_eqf_at, _eqf_host, _extend_host,
-                                             _transcript_round, _weighted_msg)
-from latticeum_tpu.zkvm.accel_t import build_eq_table_rev
-
 from ..field import fq3, goldilocks as gl
+from ..host import backend as B
+from ..host.field import host as H
+from ..host.poly import mle as mle_mod
+from ..host.ring import rq as rq_host
 from ..ring import rq
 from . import comb
 
 P = gl.P
+
+
+# -- host-side Fq3 / extension helpers --------------------------------------
+
+# copied from latticeum_tpu/zkvm/accel_fs.py:177
+def _lagrange_ext_consts(npts: int, n_targets: int):
+    """(n_targets, npts) int matrix: row t gives Σ_j M[t,j]·S(j) = S(t) for a
+    degree-(npts-1) polynomial known at points 0..npts-1.  Exact mod p."""
+    M = np.empty((n_targets, npts), dtype=object)
+    for t in range(n_targets):
+        for j in range(npts):
+            num, den = 1, 1
+            for m in range(npts):
+                if m == j:
+                    continue
+                num = num * (t - m) % P
+                den = den * (j - m) % P
+            M[t, j] = num * pow(den, P - 2, P) % P
+    return M
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:78
+def _eqf_host(b, t):
+    """eqf(b, t) = (1-b)(1-t) + b*t at integer point t, b an Fq3 triple."""
+    return tuple((x * (2 * t - 1) + ((1 - t) if j == 0 else 0)) % P
+                 for j, x in enumerate(b))
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:84
+def _eqf_at(b, r):
+    """eqf(b, r) = 1 - b - r + 2br for Fq3 b, r."""
+    br = H.fq3_mul(b, r)
+    return H.fq3_sub(H.fq3_add(H.fq3_add(br, br), (1, 0, 0)),
+                     H.fq3_add(b, r))
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:108
+def _extend_host(S_pts, ext):
+    """S_pts: [pt][slot] Fq3 triples at points 0..npts-1; ext: (n_msg, npts)
+    object-int Lagrange matrix -> [t][slot] triples at points 0..n_msg-1."""
+    npts = len(S_pts)
+    n_msg = ext.shape[0]
+    out = []
+    for t in range(n_msg):
+        row = []
+        for sl in range(8):
+            acc = [0, 0, 0]
+            for j in range(npts):
+                w = int(ext[t, j])
+                v = S_pts[j][sl]
+                for c in range(3):
+                    acc[c] = (acc[c] + w * v[c]) % P
+            row.append(tuple(acc))
+        out.append(row)
+    return out
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:128
+def _weighted_msg(terms, n_msg):
+    """terms: list of (per-point Fq3 weight list, S_ext [t][slot]) -> round
+    message rows [t] = 24 slot-major ints (sum_tbl w_tbl(t) * S_tbl(t))."""
+    msg = []
+    for t in range(n_msg):
+        slots = [(0, 0, 0)] * 8
+        for w_t, S_ext in terms:
+            w = w_t[t]
+            row = S_ext[t]
+            slots = [H.fq3_add(slots[sl], H.fq3_mul(w, row[sl]))
+                     for sl in range(8)]
+        msg.append([int(v) for sl in slots for v in sl])
+    return msg
+
+
+# copied from latticeum_tpu/zkvm/accel_rounds.py:150
+def _transcript_round(transcript, msg):
+    transcript.absorb_slice(msg)
+    c = transcript.get_challenge()
+    transcript.absorb_fq3(c)
+    return c
+
+
+# copied from latticeum_tpu/zkvm/accel_t.py:33
+def build_eq_table_rev(r_fq3_list, max_rows=None):
+    """eq table with bit-REVERSED index order: bit (nv-1-i) = x_i.
+
+    Same doubling as mle.build_eq_table but processing variables in reverse
+    so variable 0 lands on the top bit."""
+    cur = mle_mod.from_rings([H.ntt_from_u64(1)], 0)
+    for r in reversed(r_fq3_list):
+        rd = mle_mod.fq3_const(r)
+        one_minus = mle_mod.fq3_const(H.fq3_sub((1, 0, 0), r))
+        low = rq_host.ntt_scalar_mul(cur, one_minus)
+        high = rq_host.ntt_scalar_mul(cur, rd)
+        cur = (B.xp.concatenate([low[0], high[0]]),
+               B.xp.concatenate([low[1], high[1]]))
+    if max_rows is not None:
+        cur = (cur[0][:max_rows], cur[1][:max_rows])
+    return cur
 
 
 def _rows_to_pts(S):

@@ -33,6 +33,8 @@ from dataclasses import dataclass
 import torch
 
 from ..field import fq3, goldilocks as gl
+from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
+                       route as _route, stream as _stream)
 from ..ring import rq
 
 BLOCK = 128          # threads per block of every comb kernel (csrc/comb.cu)
@@ -178,42 +180,6 @@ def lin_roundr_twin(X, Tc, r3, sets, npts):
 
 
 # -- wrappers ------------------------------------------------------------------
-
-def _check(name, t, shape):
-    if t.dtype != gl.DTYPE:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected int64")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _route(tensors):
-    """'cpu' (twin) or 'cuda' (kernel); all arguments on one device."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"arguments on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _launch(fn_name, *args):
-    from .. import kernels
-    err = getattr(kernels.lib(), fn_name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed: cudaError {err} "
-                           f"({kernels.error_string(err)})")
-
 
 def _fold_check(X, Tb, mu, b_small, width_mult):
     rows, _, width = X.shape

@@ -1,35 +1,255 @@
-"""The IVC prover with the fold step on a torch device.
+"""IVC driver with the fold step and the state trees on a torch device.
 
-``TorchZkVmProver`` is the JAX package's ``ZkVmProver`` with its fold engine
-swapped for ``TorchNifs``: arithmetization, the verifier-vars collector,
-the state commitments and the IVC loop (``prove_vm``) run unchanged on the
-host, and ``commit_z`` plus the NIFS fold run as torch tensors on `device`.
+Counterpart of ``latticeum_tpu/zkvm/prover.py`` (``ZkVmProver`` with
+``device=True``): run a guest, arithmetize each trace, commit, fold with a
+fresh transcript per fold, collect the verifier vars, recompute the
+state/acc/step commitments (main.rs:53-235 of the reference zkVM).
+
+Arithmetization, the collector and the transcript are the host copy
+(``..host``).  ``commit_z`` and the NIFS fold run as torch tensors on
+`device` (``TorchNifs``), and the memory and code Merkle trees are built
+there through the perm8 kernel (``commitments.py``).
 
     TorchZkVmProver(device="cuda").prove_vm(vm, max_steps=...)
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+from dataclasses import dataclass
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 
-from latticeum_tpu.zkvm.prover import ZkVmProver
-
-from ..convert import ajtai_rows
 from ..field import goldilocks as gl
+from ..host.commit.ajtai import AjtaiScheme
+from ..host.crypto.transcript import ReplayTranscript, Transcript
+from ..host.field import host as H
+from ..host.nifs import nifs as nifs_mod
+from ..host.nifs.nifs import DecompositionParams
+from ..host.nifs.structs import CCCS
+from ..host.zkvm import checkpoint as ckpt
+from ..host.zkvm.builder import create_riscv_ccs
+from ..host.zkvm.collect import generate_verification_witness_vars
+from ..host.zkvm.commitments import ZERO_COMM, hash_wide
+from ..host.zkvm.layout import CCSLayout
+from ..host.zkvm.params import default_params
+from ..host.zkvm.witness import IVCStepInput, arithmetize
 from .accel import Engine
 from .accel_nifs import TorchNifs
+from .commitments import IncrementalMemTree, ZkVmCommitter
 
 
-class TorchZkVmProver(ZkVmProver):
+@dataclass
+class IVCState:
+    ivc_step_comm: tuple
+    ivc_step: int
+    z_0_comm: list
+    z_i_comm: list
+    acc_comm: list
+    acc: object
+    w_acc: object
+    folding_proof: object
+    folding_proof_vars: object
+
+
+class TorchZkVmProver:
     def __init__(self, params=None, scheme_seed: int = 0, device="cuda",
                  log=None):
+        """The row-constant Ajtai scheme of `scheme_seed` only (the fold step
+        commits with row totals); the prover runs on `device`, a card unless
+        the caller names the CPU."""
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchZkVmProver(device='cuda'): no CUDA device")
-        super().__init__(params, scheme_seed=scheme_seed, device=False,
-                         log=log)
+        self.params = params or default_params()
+        self.layout = CCSLayout(self.params)
+        self.ccs = create_riscv_ccs(self.layout)
+        self.dp = DecompositionParams(B=self.params.B, L=self.params.L,
+                                      B_SMALL=self.params.B_SMALL,
+                                      K=self.params.K)
+        self.scheme = AjtaiScheme.from_seed(
+            self.params.KAPPA, self.layout.w_size * self.params.L,
+            seed=scheme_seed)
         if not getattr(self.scheme, "row_constant", False):
             raise ValueError("the torch fold step needs a row-constant "
                              "Ajtai matrix")
+        self.device = dev
+        self.committer = ZkVmCommitter(dev)
+        self.timings = {}
+        self.log = log
         self.dn = TorchNifs(Engine(self.ccs, dev), self.ccs, self.params,
-                            gl.to_int_lists(ajtai_rows(self.scheme)))
+                            gl.to_int_lists(gl.from_limbs(
+                                self.scheme.rows_limbs)))
+
+    # -- pieces ----------------------------------------------------------
+    def initialize_accumulator(self, initial_step_comm=ZERO_COMM):
+        """(main.rs:305-344): zero witness -> linearization -> initial acc."""
+        x_ccs = [H.ntt_from_u64(int(v)) for v in initial_step_comm]
+        w = np.zeros((self.layout.w_size, 24), np.uint32)
+        wit = self.dn.build_witness(self.dn.e.put((w, w)))
+        cm_i = CCCS(cm=self.dn.commit(wit.f), x_ccs=x_ccs)
+        acc, _, _ = self.dn.lin_prove(cm_i, wit, Transcript(), log=self.log)
+        return acc, wit
+
+    def commit_z(self, z_rings):
+        """(main.rs:347-367): split z, build the witness, Ajtai commit."""
+        x_ccs = z_rings[:self.ccs.l]
+        wit = self.dn.build_witness(self.dn.e.ints(z_rings[self.ccs.l + 1:]))
+        return CCCS(cm=self.dn.commit(wit.f), x_ccs=x_ccs), wit
+
+    def fold(self, acc, w_acc, cm_i, w_i):
+        """Fresh transcript per fold (main.rs:379-404).  It records its
+        sample stream so the verifier-vars collector replays the challenges
+        without re-hashing."""
+        t = Transcript(record_samples=True)
+        self._last_fold_samples = t.samples
+        return self.dn.prove(acc, w_acc, cm_i, w_i, t, log=self.log,
+                             timings=self.timings)
+
+    def verify_fold(self, acc, cm_i, proof):
+        return nifs_mod.verify(acc, cm_i, proof, Transcript(), self.ccs,
+                               self.dp)
+
+    # -- main loop --------------------------------------------------------
+    def prove_vm(self, vm, max_steps=None, on_step=None,
+                 checkpoint_dir=None, checkpoint_every=10, resume=False):
+        """Run the loaded VM, folding every instruction. Returns IVCState.
+
+        With checkpoint_dir, the resumable IVC state is written every
+        `checkpoint_every` folds; resume=True restores the newest checkpoint
+        (VM machine state included) and continues from there.
+        """
+        committer = self.committer
+        code_comm = committer.vm_code_comm(vm.elf.raw_code.bytes)
+
+        start_cycle = 0
+        resumed = None
+        if resume and checkpoint_dir:
+            path = ckpt.latest(checkpoint_dir)
+            if path:
+                resumed = ckpt.load(path, vm, self.params)
+
+        # one page tree on the device gives both the root and the levels
+        mem_tree = IncrementalMemTree(vm, self.device)
+        mem_comm = mem_tree.root
+
+        if resumed is None:
+            mem_ops_comm = list(ZERO_COMM)
+            z_0_comm = self._state_comm(code_comm, vm.pc, mem_comm, vm.regs,
+                                        mem_ops_comm)
+            acc, w_acc = self.initialize_accumulator()
+            acc_0_comm = committer.acc_comm(acc)
+            step0_comm = committer.ivc_step_comm(0, z_0_comm, z_0_comm,
+                                                 acc_0_comm)
+            state = IVCState(ivc_step_comm=step0_comm, ivc_step=0,
+                             z_0_comm=z_0_comm, z_i_comm=z_0_comm,
+                             acc_comm=acc_0_comm, acc=acc, w_acc=w_acc,
+                             folding_proof=None, folding_proof_vars=None)
+        else:
+            meta, acc_r, w_acc_r, step_comm_r = resumed
+            w_acc_r = self.dn.witness_from_f_coeff(
+                self.dn.e.put((np.asarray(w_acc_r.f_coeff[0]),
+                               np.asarray(w_acc_r.f_coeff[1]))))
+            mem_ops_comm = list(meta["mem_ops_comm"])
+            state = IVCState(ivc_step_comm=step_comm_r,
+                             ivc_step=meta["step"],
+                             z_0_comm=meta["z_0_comm"],
+                             z_i_comm=meta["z_i_comm"],
+                             acc_comm=meta["acc_comm"], acc=acc_r,
+                             w_acc=w_acc_r, folding_proof=None,
+                             folding_proof_vars=meta["folding_proof_vars"])
+            start_cycle = meta["step"]
+
+        steps = [state.ivc_step]
+
+        def intercept(trace, vm_ref):
+            step = trace.cycle + 1
+            if max_steps is not None and step > max_steps:
+                raise StopIteration
+            t0 = time.time()
+            mem_op = trace.side_effects.memory_op
+            nonlocal mem_comm, mem_ops_comm
+            if mem_op is not None:
+                page_idx, _ = vm_ref.physical_addr(mem_op.address & ~0b11)
+                mem_tree.update_page(page_idx)
+                mem_comm = mem_tree.root
+                mem_ops_comm = committer.vm_mem_ops_vec_comm(mem_ops_comm,
+                                                             mem_op)
+
+            inp = IVCStepInput(
+                ivc_step_comm=state.ivc_step_comm,
+                ivc_step=step - 1,
+                state_0_comm=state.z_0_comm,
+                state_comm=state.z_i_comm,
+                acc_comm=state.acc_comm,
+                acc=state.acc,
+                folding_proof_vars=state.folding_proof_vars,
+                w_acc=state.w_acc,
+                trace=trace,
+            )
+
+            def mark(name, _t=[t0]):
+                now = time.time()
+                self.timings.setdefault(name, []).append(now - _t[0])
+                if self.log:
+                    self.log(f" step.{name}: {now-_t[0]:.2f}s")
+                _t[0] = now
+
+            z = arithmetize(inp, self.layout)
+            mark("arithmetize")
+            cm_i, w_i = self.commit_z(z)
+            mark("commit_z")
+            folded_acc, folded_w, proof = self.fold(state.acc, state.w_acc,
+                                                    cm_i, w_i)
+            mark("fold_total")
+            # replay the prover's recorded transcript samples (bit-exact)
+            samples = self._last_fold_samples
+            fvars = generate_verification_witness_vars(
+                state.acc, cm_i, proof, self.ccs, self.dp,
+                lambda: ReplayTranscript(samples))
+            mark("collector")
+
+            state_i_comm = self._state_comm(code_comm, trace.output.pc,
+                                            mem_comm, trace.output.regs,
+                                            mem_ops_comm)
+            mark("state_comms")
+            acc_comm = committer.acc_comm(folded_acc)
+            step_comm = committer.ivc_step_comm(step, state.z_0_comm,
+                                                state_i_comm, acc_comm)
+            state.ivc_step_comm = step_comm
+            state.ivc_step = step
+            state.z_i_comm = state_i_comm
+            state.acc_comm = acc_comm
+            state.acc = folded_acc
+            state.w_acc = folded_w
+            state.folding_proof = proof
+            state.folding_proof_vars = fvars
+            steps[0] = step
+            self.timings.setdefault("step_times", []).append(time.time() - t0)
+            if checkpoint_dir and step % checkpoint_every == 0:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                # the checkpoint keeps the witness as its f_coeff limbs
+                host_w = SimpleNamespace(
+                    f_coeff=gl.to_limbs(state.w_acc.f_coeff))
+                ckpt.save(os.path.join(checkpoint_dir,
+                                       f"ivc_step_{step}.npz"),
+                          dataclasses.replace(state, w_acc=host_w), vm_ref,
+                          mem_ops_comm, self.params)
+            if on_step:
+                on_step(step, state)
+
+        try:
+            vm.run(intercept, start_cycle=start_cycle)
+        except StopIteration:
+            pass
+        state.steps = steps[0]
+        return state
+
+    def _state_comm(self, code_comm, pc, mem_comm, regs, mem_ops_comm):
+        regs_c = hash_wide(list(regs))
+        return hash_wide(list(code_comm) + [pc] + list(mem_comm)
+                         + list(regs_c) + list(mem_ops_comm))
