@@ -7,16 +7,25 @@ Phases (each prints its own lines; any failure exits non-zero):
               versions; the port's native Poseidon2 core (host reference of
               the trees) must build;
   2. build    nvcc builds latticeum_tpu_torch/csrc into the kernel library
-              (one nvcc per source, all at once, then one link); the SASS
-              of perm8 and of one field operation (probe kernels) counted
-              for the bounds;
-  3. tree     the perm8 kernel against its plain-torch twin on the card,
-              exact, at n = 64 to 524288, timed from 1024 up by events, a
-              CUDA graph and torch.profiler (the record at 8192); then the
+              (one nvcc per source, all at once, then one link); ptxas
+              registers and spills of every perm8 and sponge8 form (S lanes
+              per state, S = 1, 2, 4, 8); the
+              SASS of perm8 and of one field operation (probe kernels)
+              counted for the bounds;
+  3. tree     every form of the perm8 kernel against its plain-torch twin
+              on the card, exact, at n = 1 to 524288 with the edge values in
+              every position, each timed at n = 1 to 524288 by a CUDA graph
+              and torch.profiler (the record: the form perm8 picks, at
+              n = 512, the largest level of the main path); every form of
+              sponge8 against its twin at the test shapes and at 1024 ...
+              16384 rows of 256 words (1024: a 1 MB VM's pages, 8192: an
+              8 MB VM's), each timed there, beside 64 perm8 launches of the
+              old loop over the same rows and the chain of one row alone
+              (the record: the form sponge8 picks, at 1024 x 256); then the
               memory roots of new_vm_1mb() and new_vm_8mb() loaded with
-              xorshift_guest(64), and the code root, built on the card
-              through perm8, against the host copy's native tree, with both
-              times;
+              xorshift_guest(64), and the code root, built on the card,
+              against the host copy's native tree, with both times and the
+              page tree's parts;
   4. kernels  each of the four comb kernels against its plain-torch twin on
               the card, exact integer equality, at a small shape and at the
               production round shape, with kernel and twin times;
@@ -26,8 +35,9 @@ Phases (each prints its own lines; any failure exits non-zero):
               xorshift_guest(64) with acc_comm[0] pinned after each step,
               then 2 steps of the bench's fib guest; every fold of both
               passes the host NIFS verifier with the same folded
-              accumulator; launch counts of every kernel (perm8 included:
-              the memory and code trees of each prove_vm) > 0;
+              accumulator; launch counts of every kernel (perm8 and sponge8
+              included: the memory and code trees of each prove_vm) > 0;
+              each prove_vm's tree time and its parts;
   7. replay   the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9) must give the
               acc_comm[0] values that package recorded on its TPU.
@@ -42,8 +52,12 @@ ALU instructions (IADD3, LOP3, ISETP, SEL, SHF, ...) over the ALU pipe's
 64 per SM per clock, and all its instructions over the issue rate of 128
 per SM per clock (4 schedulers x 32 lanes), at the SM clock nvidia-smi
 reports as its maximum.  The instructions are counted in SASS with
-cuobjdump: perm8_kernel is straight-line code, so its own SASS is its
-count per state; the comb kernels loop, so their count is the field
+cuobjdump: csrc/poseidon2.cu built once more with its round loops
+unrolled (-DP8_STRAIGHT_LINE) gives the one-lane perm8 kernel as
+straight-line code, whose SASS is the count per permutation; every form
+of perm8 and sponge8 is bounded by that count times its permutations,
+whatever loops and shuffles its own SASS has;
+the comb kernels loop, so their count is the field
 operations of their bodies (from the shapes) times each operation's SASS,
 counted in probe kernels that chain that operation of csrc/field.cuh.
 """
@@ -52,6 +66,7 @@ import contextlib
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -109,7 +124,11 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "fold_roundr": "latticeum_tpu/zkvm/pallas_comb.py:176",
                "lin_round0": "latticeum_tpu/zkvm/pallas_comb.py:317",
                "lin_roundr": "latticeum_tpu/zkvm/pallas_comb.py:365",
-               "perm8": "latticeum_tpu/parallel/pallas_kernels.py:109"}
+               "perm8": "latticeum_tpu/parallel/pallas_kernels.py:109",
+               "perm8_sponge": "latticeum_tpu/parallel/pallas_kernels.py:109"}
+P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
+# The instantiation whose SASS sets the per-permutation work of the bounds.
+PERM8_ONE_LANE = "perm8_kernelILi1EE"
 
 
 def log(msg):
@@ -149,7 +168,82 @@ def main():
     from latticeum_tpu_torch.zkvm import comb
 
     dev = torch.device("cuda")
+    card, rate, mix, perm8_sass = device_and_build(torch, kernels, native)
 
+    phase("tree")
+    records = tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass)
+
+    phase("build prover")
+    from latticeum_tpu_torch.host.vm.assembler import (fib_const_guest,
+                                                       xorshift_guest)
+    from latticeum_tpu_torch.host.vm.vm import new_vm_1mb
+    from latticeum_tpu_torch.host.zkvm.params import default_params
+    from latticeum_tpu_torch.zkvm.prover import TorchZkVmProver
+    t0 = time.time()
+    prover = TorchZkVmProver(default_params(), device="cuda")
+    ccs = prover.ccs
+    log(f"prover ready: {time.time() - t0:.2f} s (m=2^{ccs.s}, t={ccs.t}, "
+        f"multisets={len(ccs.S)}, lin cap={prover.dn._cap_pow2})")
+
+    phase("kernels")
+    if prover.dn._lin_sets is None:
+        fail("the CCS lin constants are not all +-1")
+    records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
+                            dev, rate, mix) + records
+
+    phase("small reference")
+    small_reference(torch, dev)
+
+    phase("main path")
+    folds = record_folds(prover)
+    comb.reset_launches()
+    poseidon2.perm8.launches = 0
+    poseidon2.sponge8.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
+               "xorshift_guest(64)", torch)
+    prove(prover, new_vm_1mb().load_elf_data(
+        fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
+    launches = {w.__name__: w.launches for w in comb.WRAPPERS}
+    launches["perm8"] = poseidon2.perm8.launches
+    launches["perm8_sponge"] = poseidon2.sponge8.launches
+    del prover.fold                     # drop the recording wrapper
+    log(f"launches on the main path: {launches}")
+    if not all(v > 0 for v in launches.values()):
+        fail("a kernel of the main path was never launched")
+    t0 = time.time()
+    for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
+        if prover.verify_fold(acc, cm_i, proof) != folded:
+            fail(f"fold {i}: the host verifier disagrees")
+    log(f"folds 1-{len(folds)} pass the host NIFS verifier "
+        f"({time.time() - t0:.1f} s)")
+    check_acc0("xorshift", xs["acc0"], XORSHIFT_ACC0)
+
+    phase("replay of the recorded TPU run")
+    with stale_lin_betas():
+        replay = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)),
+                       3, "xorshift_guest(64), stale lin betas", torch)
+    check_acc0("xorshift replay", replay["acc0"], TPU_XORSHIFT_ACC0)
+    leaked = sorted(m for m in sys.modules if m == "jax"
+                    or m.startswith(("jax.", "latticeum_tpu."))
+                    or m == "latticeum_tpu")
+    if leaked:
+        fail(f"imported {leaked[:5]}")
+    for r in records:
+        r["launches"] = launches[r["name"]]
+
+    print(json.dumps({"kernels": records}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def device_and_build(torch, kernels, native):
+    """The device and build phases.  Returns the nvidia-smi name/power
+    line, the rates of the bounds, the probes' SASS per field operation and
+    the one-lane perm8 form's SASS per state."""
     phase("device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -183,87 +277,25 @@ def main():
     for line in out.splitlines():
         if "spill" in line and not line.strip().startswith("0 bytes"):
             log(f"  ptxas: {line.strip()}")
+    for name, info in ptxas_by_function(out).items():
+        if form_of(name):
+            log(f"  ptxas {form_of(name)}: {info}")
     mix = probe_mix(kernels)
     for op in PROBE_OPS:
         log(f"SASS of one {op}: " + ", ".join(
             f"{c} {mix[op][c]:.2f}" for c in CLASSES))
-    perm8_sass = [v for k, v in sass_by_pipe(kernels, so).items()
-                  if "perm8_kernel" in k]
-    if len(perm8_sass) != 1:
-        fail("perm8_kernel not found once in the library's SASS")
-    perm8_sass = perm8_sass[0]
+    for name, counts in sorted(sass_by_pipe(kernels, so).items()):
+        if form_of(name):
+            log(f"SASS of {form_of(name)} (per lane, static): " + ", ".join(
+                f"{c} {counts[c]}" for c in CLASSES))
+    perm8_sass = straight_line_sass(kernels)
     model = pipes(PERM8_OPS, mix)
-    log("perm8_kernel SASS per state: " + ", ".join(
-        f"{c} {perm8_sass[c]}" for c in CLASSES) + "; its 520 gl_mul and "
-        "722 gl_add at the probes' SASS: " + ", ".join(
+    log("perm8 straight-line one-lane kernel, SASS per state (the bounds' "
+        "work per permutation): " + ", ".join(
+            f"{c} {perm8_sass[c]}" for c in CLASSES) + "; its 520 gl_mul "
+        "and 722 gl_add at the probes' SASS: " + ", ".join(
             f"{c} {model[c]:.0f}" for c in CLASSES))
-
-    phase("tree")
-    records = [tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass)]
-
-    phase("build prover")
-    from latticeum_tpu_torch.host.vm.assembler import (fib_const_guest,
-                                                       xorshift_guest)
-    from latticeum_tpu_torch.host.vm.vm import new_vm_1mb
-    from latticeum_tpu_torch.host.zkvm.params import default_params
-    from latticeum_tpu_torch.zkvm.prover import TorchZkVmProver
-    t0 = time.time()
-    prover = TorchZkVmProver(default_params(), device="cuda")
-    ccs = prover.ccs
-    log(f"prover ready: {time.time() - t0:.2f} s (m=2^{ccs.s}, t={ccs.t}, "
-        f"multisets={len(ccs.S)}, lin cap={prover.dn._cap_pow2})")
-
-    phase("kernels")
-    if prover.dn._lin_sets is None:
-        fail("the CCS lin constants are not all +-1")
-    records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
-                            dev, rate, mix) + records
-
-    phase("small reference")
-    small_reference(torch, dev)
-
-    phase("main path")
-    folds = record_folds(prover)
-    comb.reset_launches()
-    poseidon2.perm8.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
-               "xorshift_guest(64)", torch)
-    prove(prover, new_vm_1mb().load_elf_data(
-        fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
-    launches = {w.__name__: w.launches for w in comb.WRAPPERS}
-    launches["perm8"] = poseidon2.perm8.launches
-    del prover.fold                     # drop the recording wrapper
-    log(f"launches on the main path: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        fail("a kernel of the main path was never launched")
-    t0 = time.time()
-    for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
-        if prover.verify_fold(acc, cm_i, proof) != folded:
-            fail(f"fold {i}: the host verifier disagrees")
-    log(f"folds 1-{len(folds)} pass the host NIFS verifier "
-        f"({time.time() - t0:.1f} s)")
-    check_acc0("xorshift", xs["acc0"], XORSHIFT_ACC0)
-
-    phase("replay of the recorded TPU run")
-    with stale_lin_betas():
-        replay = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)),
-                       3, "xorshift_guest(64), stale lin betas", torch)
-    check_acc0("xorshift replay", replay["acc0"], TPU_XORSHIFT_ACC0)
-    leaked = sorted(m for m in sys.modules if m == "jax"
-                    or m.startswith(("jax.", "latticeum_tpu."))
-                    or m == "latticeum_tpu")
-    if leaked:
-        fail(f"imported {leaked[:5]}")
-    for r in records:
-        r["launches"] = launches[r["name"]]
-
-    print(json.dumps({"kernels": records}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return card, rate, mix, perm8_sass
 
 
 def cuda_ms(torch, fn, reps):
@@ -363,6 +395,30 @@ def probe_mix(kernels):
                  for c in CLASSES} for op in PROBE_OPS}
 
 
+def straight_line_sass(kernels):
+    """{"fma", "alu", "total"}: the SASS of one permutation, from
+    csrc/poseidon2.cu built with its round loops unrolled into the
+    one-lane kernel alone (straight-line code, one state a thread)."""
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    cubin = kernels.BUILD_DIR / f"perm8_straight.{os.getpid()}.cubin"
+    try:
+        res = subprocess.run(
+            [kernels.nvcc(), "-cubin", *kernels.ARCH_FLAGS,
+             "-DP8_STRAIGHT_LINE", "-o", str(cubin),
+             str(kernels.CSRC / "poseidon2.cu")],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            fail("the straight-line perm8 did not build: "
+                 f"{res.stdout}{res.stderr}")
+        found = [v for k, v in sass_by_pipe(kernels, cubin).items()
+                 if PERM8_ONE_LANE in k]
+    finally:
+        cubin.unlink(missing_ok=True)
+    if len(found) != 1:
+        fail(f"{PERM8_ONE_LANE} not found once in the straight-line build")
+    return found[0]
+
+
 def tally(*terms):
     """Sum of (times, {op: count}) terms -> {op: count}."""
     out = {}
@@ -439,52 +495,197 @@ def u64_err(gl, np, a, b):
     return worst
 
 
+def form_of(function):
+    """'perm8 S=8' for a mangled perm8_kernel<8> (sponge8 alike), None for
+    any other function."""
+    m = re.search(r"(perm8|sponge8)_kernelILi(\d)EE", function)
+    return m and f"{m.group(1)} S={m.group(2)}"
+
+
+def form_label(lanes):
+    return f"S={lanes}"
+
+
+def ptxas_by_function(output):
+    """{function: 'N registers, X bytes spill stores, Y bytes spill loads'}
+    from the `-Xptxas -v` output of the build."""
+    out, name = {}, None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            out[name]["spills"] = line.strip().split(", ", 1)[1]
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = re.search(r"Used (\d+) registers",
+                                               line).group(1)
+    return {k: f"{v.get('registers', '?')} registers, "
+               f"{v.get('spills', 'spills not reported')}"
+            for k, v in out.items()}
+
+
+def edge_states(np, gl, n, seed):
+    """(n, 8) random states whose first 48 rows hold each edge value in
+    every position (the rest of those rows zero)."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, gl.P, (n, 8), dtype=np.uint64)
+    edges = (0, 1, 0xFFFFFFFF, 1 << 32, gl.P - 1, 2)
+    rows = np.zeros((8 * len(edges), 8), np.uint64)
+    for i, v in enumerate(edges):
+        for lane in range(8):
+            rows[8 * i + lane, lane] = v
+    m = min(n, rows.shape[0])
+    u[:m] = rows[:m]
+    return u
+
+
+def edge_rows(np, gl, n, length, seed):
+    """(n, L) u32 words; the first words each edge value four times in a
+    row, so in every rate position of an absorb."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 1 << 32, (n, length), dtype=np.uint64)
+    edges = np.repeat(np.array([0, 1, 0xFFFFFFFF, 1 << 32, gl.P - 1, 2],
+                               np.uint64), 4)[:u.size]
+    u.reshape(-1)[:edges.size] = edges
+    return u
+
+
+def timed_once(torch, fn):
+    """(fn(), its device ms by events): one call, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass):
-    """perm8 against its twin, then the memory and code roots built on the
-    card against the host copy's native tree.  Returns perm8's record."""
+    """Every form of perm8 and sponge8 against its twin and timed; then the
+    memory and code roots built on the card against the host copy's native
+    tree.  Returns the records of perm8 and perm8_sponge."""
     from latticeum_tpu_torch.host.vm.assembler import xorshift_guest
     from latticeum_tpu_torch.host.vm.vm import new_vm_1mb, new_vm_8mb
     from latticeum_tpu_torch.host.zkvm import commitments as host_comm
-    from latticeum_tpu_torch.zkvm.commitments import ZkVmCommitter
+    from latticeum_tpu_torch.zkvm.commitments import (IncrementalMemTree,
+                                                      ZkVmCommitter)
 
-    rng = np.random.default_rng(11)
-    edges = np.array([0, 1, 2, 0xFFFFFFFF, 1 << 32, gl.P - 1], np.uint64)
+    forms = poseidon2.LANES
+    one_lane = 1
+
+    def perm_bound(perms, nbytes):
+        return bound(rate, nbytes, {c: perm8_sass[c] * perms
+                                    for c in CLASSES})[0]
+
+    # perm8: every form bit-exact at every shape, then timed.  512 ... 1 are
+    # the levels of the main path; 1024 and 8192 the leaf absorbs of the
+    # 1 MB and 8 MB trees as the old loop ran them; 2048 ... 16384 set the
+    # rule's bounds; the larger n fill the card.
     worst = 0
-    # 1024 and 8192 are the leaf absorbs of the 1 MB and 8 MB trees; the
-    # larger n show how the time per state falls once the card fills.
-    for n in (64, 1024, 8192, 65536, 524288):
-        u = rng.integers(0, gl.P, (n, 8), dtype=np.uint64)
-        u.reshape(-1)[:edges.size] = edges
-        x = torch.from_numpy(gl.to_i64_bits(u)).to(dev)
-        got = poseidon2.perm8(x)
-        want = poseidon2.perm8_twin(x)
-        torch.cuda.synchronize()
-        e = u64_err(gl, np, got, want)
-        worst = max(worst, e)
-        log(f"perm8 n={n}: "
-            f"{'bit-exact' if e == 0 else f'MISMATCH max_abs_err={e}'}")
-        if e:
-            fail("perm8 disagrees with its twin")
-        if n < 1024:
-            continue
-        fn = lambda: poseidon2.perm8(x)     # noqa: E731
-        events, graph = cuda_ms(torch, fn, 50), graph_ms(torch, fn, 50)
-        prof = profiled_ms(torch, fn, 50, "perm8_kernel")
-        b_ms = bound(rate, 2 * 64 * n,
-                     {c: perm8_sass[c] * n for c in CLASSES})[0]
-        log(f"perm8 n={n} per launch: {events:.4f} ms (events around 50 "
-            f"calls), {graph:.4f} ms (CUDA graph of 50), "
-            + (f"{prof:.4f} ms (profiler, kernel mean)" if prof is not None
-               else "profiler: not measured")
-            + f"; bound {b_ms:.4f} ms, {100 * b_ms / graph:.1f} % of it")
-        if n == 8192:
-            x8192, ms = x, graph
-    plain_ms = cuda_ms(torch, lambda: poseidon2.perm8_twin(x8192), 3)
-    log(f"perm8 n=8192: kernel {ms:.4f} ms (CUDA graph of 50), twin "
-        f"{plain_ms:.3f} ms (mean of 3)")
-    rec = record("perm8", "latticeum_tpu_torch/csrc/poseidon2.cu", worst, ms,
-                 plain_ms, rate, 2 * 64 * 8192,
-                 {c: perm8_sass[c] * 8192 for c in CLASSES})
+    inputs = {}
+    for n in (1, 33, 64, 512, 1023, 1024, 2048, 4096, 8192, 16384, 65536,
+              524288):
+        x = torch.from_numpy(gl.to_i64_bits(edge_states(np, gl, n, n))).to(
+            dev)
+        want, twin_ms = timed_once(torch, lambda: poseidon2.perm8_twin(x))
+        for form in forms:
+            e = u64_err(gl, np, poseidon2.perm8_lanes(x, form), want)
+            torch.cuda.synchronize()
+            worst = max(worst, e)
+            if e:
+                fail(f"perm8 {form_label(form)} n={n}: max_abs_err={e}")
+        log(f"perm8 n={n}: all {len(forms)} forms bit-exact with the twin "
+            f"(twin {twin_ms:.3f} ms)")
+        inputs[n] = (x, twin_ms)
+    times = {}
+    for n in (1, 64, 512, 1024, 2048, 4096, 8192, 16384, 65536, 524288):
+        x = inputs[n][0]
+        b_ms = perm_bound(n, 2 * 64 * n)
+        for form in forms:
+            fn = lambda: poseidon2.perm8_lanes(x, form)  # noqa: E731
+            graph = graph_ms(torch, fn, 50)
+            prof = profiled_ms(torch, fn, 50, "perm8_kernel")
+            times[n, form] = graph
+            log(f"perm8 n={n} {form_label(form)}: {graph:.4f} ms (CUDA graph "
+                "of 50), " + (f"{prof:.4f} ms (profiler, kernel mean)"
+                              if prof is not None
+                              else "profiler: not measured")
+                + f"; bound {b_ms:.5f} ms, {100 * b_ms / graph:.1f} % of it")
+        best = min(forms, key=lambda f: times[n, f])
+        pick = poseidon2.kernel_lanes(n)
+        log(f"perm8 n={n}: fastest {form_label(best)} {times[n, best]:.4f} "
+            f"ms; perm8 picks {form_label(pick)} {times[n, pick]:.4f} ms; "
+            f"one-lane form {times[n, one_lane]:.4f} ms "
+            f"({times[n, one_lane] / times[n, pick]:.2f}x the pick)")
+    for n in (8192, 512):               # PR 2's record shape, the path's
+        pick = poseidon2.kernel_lanes(n)
+        log(f"perm8 n={n}: kernel ({form_label(pick)}) {times[n, pick]:.4f} "
+            f"ms (CUDA graph of 50), twin {inputs[n][1]:.3f} ms (one call)")
+    records = [record("perm8", P8_SOURCE, worst, times[512, pick],
+                      inputs[512][1], rate, 2 * 64 * 512,
+                      {c: perm8_sass[c] * 512 for c in CLASSES})]
+
+    # sponge8: every form bit-exact at every shape, then timed at the page
+    # shapes beside 64 perm8 launches of the old loop over the same rows.
+    worst = 0
+    page = {}
+    for n, length in ((1, 1), (3, 7), (6, 9), (300, 1), (33, 5),
+                      (1023, 12), (1024, 256), (2048, 256), (4096, 256),
+                      (8192, 256), (16384, 256)):
+        x = torch.from_numpy(edge_rows(np, gl, n, length, n + length).astype(
+            np.int64)).to(dev)
+        want, twin_ms = timed_once(torch, lambda: poseidon2.sponge8_twin(x))
+        for form in forms:
+            e = u64_err(gl, np, poseidon2.sponge8_lanes(x, form), want)
+            torch.cuda.synchronize()
+            worst = max(worst, e)
+            if e:
+                fail(f"sponge8 {form_label(form)} {n} x {length}: "
+                     f"max_abs_err={e}")
+        log(f"sponge8 {n} x {length}: all {len(forms)} forms bit-exact with "
+            f"the twin (twin {twin_ms:.3f} ms)")
+        if length == 256 and n >= 1024:
+            page[n] = (x, twin_ms)
+    one_row = page[1024][0][:1].contiguous()
+    for n, (x, twin_ms) in page.items():
+        perms = n * 64
+        b_ms = perm_bound(perms, 8 * n * 256 + 8 * n * 4)
+        stimes = {}
+        for form in forms:
+            fn = lambda: poseidon2.sponge8_lanes(x, form)  # noqa: E731
+            stimes[form] = graph_ms(torch, fn, 10)
+            prof = profiled_ms(torch, fn, 10, "sponge8_kernel")
+            log(f"sponge8 {n} x 256 {form_label(form)}: {stimes[form]:.4f} ms "
+                "(CUDA graph of 10), " + (f"{prof:.4f} ms (profiler, kernel "
+                                          "mean)" if prof is not None else
+                                          "profiler: not measured")
+                + f"; bound {b_ms:.4f} ms, {100 * b_ms / stimes[form]:.1f} % "
+                "of it")
+        loops = {}
+        for form in (one_lane, poseidon2.kernel_lanes(n)):
+            perm = lambda s, f=form: poseidon2.perm8_lanes(s, f)  # noqa: E731
+            loops[form] = graph_ms(
+                torch, lambda: poseidon2.sponge8_twin(x, perm=perm), 10)
+            log(f"sponge as 64 perm8 launches ({form_label(form)}) "
+                f"{n} x 256: {loops[form]:.4f} ms (CUDA graph of 10)")
+        pick = poseidon2.kernel_lanes(n)
+        floor = graph_ms(torch, lambda: poseidon2.sponge8_lanes(
+            one_row, pick), 10)
+        best = min(forms, key=stimes.get)
+        log(f"sponge8 {n} x 256: fastest {form_label(best)} "
+            f"{stimes[best]:.4f} ms; sponge8 picks {form_label(pick)} "
+            f"{stimes[pick]:.4f} ms, {loops[one_lane] / stimes[pick]:.2f}x "
+            f"faster than the old loop of the one-lane form; bound "
+            f"{b_ms:.4f} ms; the 64-absorb chain of one row alone "
+            f"{floor:.4f} ms (the latency floor); twin {twin_ms:.3f} ms")
+        if n == 1024:
+            records.append(record(
+                "perm8_sponge", P8_SOURCE, worst, stimes[pick], twin_ms, rate,
+                8 * n * 256 + 8 * n * 4,
+                {c: perm8_sass[c] * perms for c in CLASSES}))
 
     committer, host = ZkVmCommitter(dev), host_comm.ZkVmCommitter()
     for label, make in (("1 MB", new_vm_1mb), ("8 MB", new_vm_8mb)):
@@ -503,11 +704,20 @@ def tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass):
             f"{t_host:.4f} s; {'equal' if root == want else 'DIFFERENT'}")
         if root != want:
             fail(f"the {label} memory root built on the card differs")
+        parts = {}
+        t0 = time.perf_counter()
+        tree = IncrementalMemTree(vm, dev, timings=parts)
+        total = time.perf_counter() - t0
+        if tree.root != want:
+            fail(f"the {label} IncrementalMemTree root differs")
+        log(f"page tree {label} (IncrementalMemTree, synchronized parts): "
+            f"{total:.4f} s = " + ", ".join(
+                f"{k.split('.', 1)[1]} {v[0]:.4f}" for k, v in parts.items()))
         code = vm.elf.raw_code.bytes
         if committer.vm_code_comm(code) != host.vm_code_comm(code):
             fail("the code root built on the card differs")
     log("code root (xorshift_guest(64)): equal")
-    return rec
+    return records
 
 
 def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
@@ -677,6 +887,7 @@ def record_folds(prover):
 
 
 def prove(prover, vm, steps, name, torch):
+    from latticeum_tpu_torch.zkvm.commitments import IncrementalMemTree
     prover.timings = {}
     marks, acc0 = [time.time()], []
 
@@ -694,6 +905,10 @@ def prove(prover, vm, steps, name, torch):
         fail(f"{name} acc_comm malformed")
     phases = {k: [round(v, 3) for v in vs] for k, vs in prover.timings.items()}
     log(f"{name} phase seconds: {json.dumps(phases)}")
+    log(f"{name} trees: {prover.timings['trees'][0]:.4f} s = code "
+        f"{prover.timings['trees.code'][0]:.4f} + page tree " + ", ".join(
+            f"{part} {prover.timings['trees.' + part][0]:.4f}"
+            for part in IncrementalMemTree.PARTS))
     log(f"{name} max_memory_allocated: {torch.cuda.max_memory_allocated()} "
         f"bytes")
     return {"acc0": acc0}

@@ -7,11 +7,15 @@ Pallas kernel ``latticeum_tpu/parallel/pallas_kernels.py:109``
 (``make_perm8_kernel``), whose CUDA body is ``csrc/poseidon2.cu``.
 
 A state is a row of 8 field elements, u64 bits in ``torch.int64`` (the
-port's element type, ``field/goldilocks.py``).  ``perm8`` given a CPU tensor
-runs ``perm8_twin``, the plain-torch version; given a CUDA tensor it
-launches the kernel (and counts the launch) or raises.  There is no
-fallback.  The sponge and the Merkle levels are plain torch around perm8:
-each absorb or level is one perm8 call over all rows at once.
+port's element type, ``field/goldilocks.py``).  ``perm8`` (the permutation)
+and ``sponge8`` (the rate-4 sponge of whole rows, all absorbs in one launch)
+given a CPU tensor run their plain-torch twins; given a CUDA tensor they
+launch their kernel (and count the launch) or raise.  There is no fallback.
+The kernels come in forms, S lanes per state (see ``csrc/poseidon2.cu``):
+``perm8`` and ``sponge8`` pick S from the number of rows by a fixed rule
+(``kernel_lanes``); ``perm8_lanes`` and ``sponge8_lanes`` run a given S so
+that the forms can be compared.  The Merkle levels are one perm8 call per
+level.
 """
 
 from __future__ import annotations
@@ -91,36 +95,103 @@ def _kernel_consts(device):
     return _consts_on[device]
 
 
-def perm8(state):
-    """Poseidon2 width-8 permutation of every row of `state` (n, 8)
-    (replaces pallas_kernels.make_perm8_kernel)."""
+# Lanes per state: the instantiations of csrc/poseidon2.cu.
+LANES = (1, 2, 4, 8)
+
+
+def kernel_lanes(n):
+    """S for perm8 and sponge8 over n rows: the fastest on the H100 at the
+    smallest measured n at or above this one (PERF.md section 6;
+    chip_smoke.py times every S at n = 1, 64, 512 and every power of two
+    from 1024 to 16384, then 65536 and 524288, and sponge8 at 1024 ...
+    16384 rows of 256 words).  More lanes per state shorten each lane's
+    chain and fill the card while n is small; fewer issue fewer
+    instructions once it is full."""
+    if n <= 2048:
+        return 8
+    if n <= 4096:
+        return 4
+    if n <= 16384:
+        return 2
+    return 1
+
+
+def _check_lanes(lanes):
+    if lanes not in LANES:
+        raise ValueError(f"no perm8 form with {lanes} lanes per state; "
+                         f"lanes: {LANES}")
+
+
+def perm8_lanes(state, lanes):
+    """perm8 with `lanes` lanes per state."""
     check("state", state, (state.shape[0], WIDTH))
+    _check_lanes(lanes)
     if route((state,)) == "cpu":
         return perm8_twin(state)
     out = torch.empty_like(state)
     if state.shape[0]:
         launch("lt_perm8", ptr(state), ptr(out),
-               ptr(_kernel_consts(state.device)), state.shape[0], stream())
+               ptr(_kernel_consts(state.device)), state.shape[0], lanes,
+               stream())
         perm8.launches += 1
     return out
+
+
+def perm8(state):
+    """Poseidon2 width-8 permutation of every row of `state` (n, 8)
+    (replaces pallas_kernels.make_perm8_kernel)."""
+    return perm8_lanes(state, kernel_lanes(state.shape[0]))
 
 
 perm8.launches = 0
 
 
-# -- sponge and Merkle levels (plain torch around perm8) -----------------------
+# -- the sponge ---------------------------------------------------------------
 
-def hash_rows_narrow(rows):
-    """Width-8 rate-4 overwrite sponge over every row of `rows` (n, L) of
-    field values -> (n, 4) digests: ceil(L / 4) absorbs, each one perm8 over
-    all rows (the padding-free sponge of poseidon2_ref.hash_narrow)."""
+def sponge8_twin(rows, perm=perm8_twin):
+    """Plain-torch sponge: ceil(L / 4) absorbs, each one `perm` over all
+    rows; an absorb of w words overwrites state[0:w] and keeps the rest."""
     n, length = rows.shape
     state = torch.zeros((n, WIDTH), dtype=gl.DTYPE, device=rows.device)
     for pos in range(0, length, RATE):
         w = min(RATE, length - pos)
         state[:, :w] = rows[:, pos:pos + w]
-        state = perm8(state)
+        state = perm(state)
     return state[:, :DIGEST].contiguous()
+
+
+def sponge8_lanes(rows, lanes):
+    """sponge8 with `lanes` lanes per state."""
+    if rows.dim() != 2:
+        raise ValueError(f"rows: {rows.dim()} dimensions, expected 2")
+    check("rows", rows, tuple(rows.shape))
+    _check_lanes(lanes)
+    if route((rows,)) == "cpu":
+        return sponge8_twin(rows)
+    n, length = rows.shape
+    out = torch.empty((n, DIGEST), dtype=gl.DTYPE, device=rows.device)
+    if n:
+        launch("lt_sponge8", ptr(rows), ptr(out),
+               ptr(_kernel_consts(rows.device)), n, length, lanes, stream())
+        sponge8.launches += 1
+    return out
+
+
+def sponge8(rows):
+    """Width-8 rate-4 overwrite sponge over every row of `rows` (n, L) of
+    field values -> (n, 4) digests (the padding-free sponge of
+    poseidon2_ref.hash_narrow), all absorbs of a row in one launch."""
+    return sponge8_lanes(rows, kernel_lanes(rows.shape[0]))
+
+
+sponge8.launches = 0
+
+
+# -- Merkle levels ------------------------------------------------------------
+
+def hash_rows_narrow(rows):
+    """(n, L) rows -> (n, 4) leaf digests (``sponge8``)."""
+    return sponge8(rows.contiguous())
 
 
 def compress_level(digests):
@@ -136,7 +207,13 @@ def merkle_levels_rows(rows):
     digest, then compression levels up to the root.  Returns [(2^k, 4)
     tensors], leaves first, root last (latticeum_tpu/zkvm/commitments.py
     merkle_levels over hash_narrow leaves)."""
-    digests = hash_rows_narrow(rows)
+    return merkle_levels(hash_rows_narrow(rows))
+
+
+def merkle_levels(digests):
+    """Leaf digests (n, 4) padded to a power of two with the zero digest,
+    then one compression level after another up to the root: [(2^k, 4)
+    tensors], leaves first, root last."""
     n = digests.shape[0]
     npad = 1 << (n - 1).bit_length() if n > 1 else 1
     if npad != n:

@@ -106,7 +106,8 @@ def lib():
         "lt_lin_round0": [vp] * 5 + [i32, vp, vp, i64, i32, vp],
         "lt_lin_roundr": [vp] * 6 + [i32, vp, vp, i64, u64, u64, u64, i32,
                                      vp],
-        "lt_perm8": [vp] * 3 + [i64, vp],
+        "lt_perm8": [vp] * 3 + [i64, i32, vp],
+        "lt_sponge8": [vp] * 3 + [i64, i64, i32, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)

@@ -3,29 +3,37 @@
 Counterpart of ``latticeum_tpu/zkvm/commitments.py::ZkVmCommitter`` and of
 ``latticeum_tpu/zkvm/prover.py::IncrementalMemTree``.  The page tree
 (one leaf per memory page, the sponge of its words) and the code tree (one
-leaf per 16-bit code halfword) are built on the device through perm8
-(``crypto/poseidon2.py``): each sponge absorb and each compression level is
-one perm8 launch over all rows.  Everything else (register hash, memory-op
-chain, state/acc/step commitments) is the host copy's.
+leaf per 16-bit code halfword) are built on the device
+(``crypto/poseidon2.py``): the leaves in one sponge8 launch over all rows,
+then one perm8 launch per compression level.  Everything else (register
+hash, memory-op chain, state/acc/step commitments) is the host copy's.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from ..crypto.poseidon2 import merkle_levels_rows
+from ..crypto.poseidon2 import (hash_rows_narrow, merkle_levels,
+                               merkle_levels_rows)
 from ..field import goldilocks as gl
 from ..host.crypto import poseidon2_ref as p2
 from ..host.zkvm import commitments as host_comm
 
 
-def page_rows(vm, device):
+def page_words(vm):
     """All memory pages of `vm` as an int64 (page_count, words_per_page)
-    tensor of u32 words on `device` (the rows of vm.page_words)."""
+    host array of u32 words (the rows of vm.page_words)."""
     words = np.frombuffer(b"".join(vm.memory), dtype="<u4").reshape(
         vm.page_count, vm.words_per_page)
-    return torch.from_numpy(words.astype(np.int64)).to(device)
+    return words.astype(np.int64)
+
+
+def page_rows(vm, device):
+    """page_words(vm) as a tensor on `device`."""
+    return torch.from_numpy(page_words(vm)).to(device)
 
 
 def code_rows(code_bytes, device):
@@ -57,16 +65,47 @@ class ZkVmCommitter(host_comm.ZkVmCommitter):
         return _root(merkle_levels_rows(code_rows(code_bytes, self.device)))
 
 
+def stopwatch(device, timings):
+    """mark(key): wait for `device`, then append the host seconds since the
+    previous mark to timings[key].  Without `timings` a mark does nothing
+    (and does not wait)."""
+    device = torch.device(device)
+    last = [time.perf_counter()]
+
+    def mark(key):
+        if timings is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        timings.setdefault(key, []).append(now - last[0])
+        last[0] = now
+    return mark
+
+
 class IncrementalMemTree:
     """Merkle tree over memory pages with O(log n) updates per write.
 
     The initial levels are built on `device` and brought to the host as int
     lists once; each write then rehashes one page and its path on the host,
-    as the JAX package's tree does."""
+    as the JAX package's tree does.  With `timings` (a dict of lists), the
+    build records its parts under "trees.page_copy", "trees.upload",
+    "trees.sponge", "trees.levels" and "trees.fetch"."""
 
-    def __init__(self, vm, device):
-        levels = merkle_levels_rows(page_rows(vm, device))
+    PARTS = ("page_copy", "upload", "sponge", "levels", "fetch")
+
+    def __init__(self, vm, device, timings=None):
+        mark = stopwatch(device, timings)
+        words = page_words(vm)
+        mark("trees.page_copy")
+        rows = torch.from_numpy(words).to(device)
+        mark("trees.upload")
+        leaves = hash_rows_narrow(rows)
+        mark("trees.sponge")
+        levels = merkle_levels(leaves)
+        mark("trees.levels")
         self.levels = [gl.to_int_lists(lv) for lv in levels]
+        mark("trees.fetch")
         self.vm = vm
 
     def update_page(self, page_index: int):

@@ -8,7 +8,8 @@ state/acc/step commitments (main.rs:53-235 of the reference zkVM).
 Arithmetization, the collector and the transcript are the host copy
 (``..host``).  ``commit_z`` and the NIFS fold run as torch tensors on
 `device` (``TorchNifs``), and the memory and code Merkle trees are built
-there through the perm8 kernel (``commitments.py``).
+there through the sponge8 and perm8 kernels (``commitments.py``);
+``timings["trees"]`` is their host time in each ``prove_vm``.
 
     TorchZkVmProver(device="cuda").prove_vm(vm, max_steps=...)
 """
@@ -124,7 +125,9 @@ class TorchZkVmProver:
         (VM machine state included) and continues from there.
         """
         committer = self.committer
+        t0 = time.perf_counter()
         code_comm = committer.vm_code_comm(vm.elf.raw_code.bytes)
+        t_code = time.perf_counter() - t0
 
         start_cycle = 0
         resumed = None
@@ -133,9 +136,14 @@ class TorchZkVmProver:
             if path:
                 resumed = ckpt.load(path, vm, self.params)
 
-        # one page tree on the device gives both the root and the levels
-        mem_tree = IncrementalMemTree(vm, self.device)
+        # one page tree on the device gives both the root and the levels;
+        # both trees end in a fetch to the host, so the clock is synchronized
+        t0 = time.perf_counter()
+        mem_tree = IncrementalMemTree(vm, self.device, timings=self.timings)
         mem_comm = mem_tree.root
+        self.timings.setdefault("trees.code", []).append(t_code)
+        self.timings.setdefault("trees", []).append(
+            t_code + time.perf_counter() - t0)
 
         if resumed is None:
             mem_ops_comm = list(ZERO_COMM)
