@@ -29,16 +29,34 @@ Phases (each prints its own lines; any failure exits non-zero):
   4. kernels  each of the four comb kernels against its plain-torch twin on
               the card, exact integer equality, at a small shape and at the
               production round shape, with kernel and twin times;
-  5. small    two chained folds of the port on the card against the host
-              NIFS on the test CCS (transcript, proofs, accumulator);
-  6. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
-              xorshift_guest(64) with acc_comm[0] pinned after each step,
-              then 2 steps of the bench's fib guest; every fold of both
-              passes the host NIFS verifier with the same folded
-              accumulator; launch counts of every kernel (perm8 and sponge8
-              included: the memory and code trees of each prove_vm) > 0;
-              each prove_vm's tree time and its parts;
-  7. replay   the same 3 xorshift steps with the JAX package's stale
+  5. claims   the digit-plane kernels (digit_split, plane_recombine) against
+              their twins at edge shapes (several chunks, every padding) and
+              at the four production shapes of the evaluation claims (dec u,
+              fold eta, dec v, lin v); ring_contract against the slot-wise
+              products at the fold-eta and dec-v shapes; times of the split,
+              the torch._int_mm products, the recombination, the whole
+              contraction and the slot-wise form, each beside its bound;
+  6. small    two chained folds of the port on the card against the host
+              NIFS on the test CCS (transcript, proofs, accumulator), with
+              the row-constant and with a general dense Ajtai scheme; one
+              production-size general commit (kappa 32, N 98815, 14
+              witnesses) against the plain chunked matvec, timed;
+  7. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+              xorshift_guest(64) with acc_comm[0] pinned after each step
+              (a checkpoint written after step 2), then 2 steps of the
+              bench's fib guest; every fold of both passes the host NIFS
+              verifier with the same folded accumulator; launch counts of
+              every kernel (perm8 and sponge8 included: the memory and code
+              trees of each prove_vm) > 0, and ring_contract called; each
+              prove_vm's tree time and its parts;
+  8. resume   a fresh TorchZkVmProver(debug=True) resumes from the step-2
+              checkpoint and folds step 3: it must equal the continuous run
+              (acc_comm, z_i_comm, ivc_step_comm, the accumulator's h, r, v,
+              cm, u, the collector's vars) and reach the pinned acc_comm[0];
+              its relation check ran; a step whose z was changed must raise;
+  9. cli      python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
+              --max-steps 1 --vm-size 1mb --debug prints its JSON line;
+ 10. replay   the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9) must give the
               acc_comm[0] values that package recorded on its TPU.
 Then one JSON line of kernel records, the nvidia-smi name/power line, and
@@ -59,7 +77,13 @@ of perm8 and sponge8 is bounded by that count times its permutations,
 whatever loops and shuffles its own SASS has;
 the comb kernels loop, so their count is the field
 operations of their bodies (from the shapes) times each operation's SASS,
-counted in probe kernels that chain that operation of csrc/field.cuh.
+counted in probe kernels that chain that operation of csrc/field.cuh.  The
+digit-plane kernels are counted from their functions, never from their own
+SASS: digit_split does DIGIT_OPS integer operations per value, and
+plane_recombine per output its 243 plane products' sums plus the field
+operations of RECOMBINE_OPS at the probes' SASS; the bytes bound both.
+torch._int_mm is bounded by 2 M K N operations per slot over the card's
+dense int8 tensor-core rate.
 """
 
 import contextlib
@@ -67,8 +91,10 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -84,6 +110,7 @@ TPU_XORSHIFT_ACC0 = (0x50aa97463269fda, 0x9cb88707da63ca3,
 FIB_RESULT = 0xC594BFC3
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12           # dense int8 tensor cores, same sheet
 # Per SM per clock on Hopper (sm_90): 64 lanes each for the FMA pipe's
 # integer multiply-adds and for the integer ALU, and one warp instruction
 # per scheduler, 4 x 32 thread instructions, issued.
@@ -125,10 +152,23 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "lin_round0": "latticeum_tpu/zkvm/pallas_comb.py:317",
                "lin_roundr": "latticeum_tpu/zkvm/pallas_comb.py:365",
                "perm8": "latticeum_tpu/parallel/pallas_kernels.py:109",
-               "perm8_sponge": "latticeum_tpu/parallel/pallas_kernels.py:109"}
+               "perm8_sponge": "latticeum_tpu/parallel/pallas_kernels.py:109",
+               # XLA functions of the JAX package, no Pallas kernel
+               "digit_split": "latticeum_tpu/field/mxu.py:45",
+               "plane_recombine": "latticeum_tpu/field/mxu.py:91"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
+MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
+MXU_KERNELS = ("digit_split", "plane_recombine")
 # The instantiation whose SASS sets the per-permutation work of the bounds.
 PERM8_ONE_LANE = "perm8_kernelILi1EE"
+# The digit split of one u64 value (field/mxu.py digit_planes): 8 digit
+# steps of 4 integer operations (byte taken, carry added, compared, 256
+# taken off); no multiply.
+DIGIT_OPS = 8 * 4
+# One output of the recombination (csrc/mxu.cu plane_recombine_kernel):
+# besides its 3 x 81 int64 sums, two Horner chains of 17 steps over the
+# digit weights, the nonresidue, the running sum.
+RECOMBINE_OPS = {"mul": 34, "add": 36, "mul_w": 1}
 
 
 def log(msg):
@@ -163,7 +203,7 @@ def main():
 
     from latticeum_tpu_torch import kernels
     from latticeum_tpu_torch.crypto import poseidon2
-    from latticeum_tpu_torch.field import goldilocks as gl
+    from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
     from latticeum_tpu_torch.zkvm import comb
 
@@ -191,26 +231,39 @@ def main():
     records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
                             dev, rate, mix) + records
 
+    phase("claims")
+    records += claims_checks(torch, np, gl, mxu, prover, dev, rate, mix)
+
     phase("small reference")
-    small_reference(torch, dev)
+    small_reference(torch, dev, general=False)
+    small_reference(torch, dev, general=True)
+    general_commit(torch, np, gl, prover, dev)
 
     phase("main path")
     folds = record_folds(prover)
     comb.reset_launches()
+    mxu.reset_launches()
     poseidon2.perm8.launches = 0
     poseidon2.sponge8.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
-               "xorshift_guest(64)", torch)
+               "xorshift_guest(64)", torch, checkpoint_dir=ckdir,
+               checkpoint_every=2)
     prove(prover, new_vm_1mb().load_elf_data(
         fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
     launches = {w.__name__: w.launches for w in comb.WRAPPERS}
     launches["perm8"] = poseidon2.perm8.launches
     launches["perm8_sponge"] = poseidon2.sponge8.launches
+    launches.update({w.__name__: w.launches for w in mxu.KERNELS})
+    contractions = mxu.ring_contract.calls
     del prover.fold                     # drop the recording wrapper
-    log(f"launches on the main path: {launches}")
+    log(f"launches on the main path: {launches}; ring_contract calls "
+        f"{contractions}")
     if not all(v > 0 for v in launches.values()):
         fail("a kernel of the main path was never launched")
+    if not contractions:
+        fail("the main path made no ring_contract call")
     t0 = time.time()
     for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
         if prover.verify_fold(acc, cm_i, proof) != folded:
@@ -218,6 +271,16 @@ def main():
     log(f"folds 1-{len(folds)} pass the host NIFS verifier "
         f"({time.time() - t0:.1f} s)")
     check_acc0("xorshift", xs["acc0"], XORSHIFT_ACC0)
+
+    phase("resume")
+    try:
+        resume_checks(torch, xs["state"], ckdir, xorshift_guest, new_vm_1mb,
+                      default_params, TorchZkVmProver)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    phase("cli")
+    cli_check()
 
     phase("replay of the recorded TPU run")
     with stale_lin_betas():
@@ -242,8 +305,8 @@ def main():
 
 def device_and_build(torch, kernels, native):
     """The device and build phases.  Returns the nvidia-smi name/power
-    line, the rates of the bounds, the probes' SASS per field operation and
-    the one-lane perm8 form's SASS per state."""
+    line, the rates of the bounds, the probes' SASS per field operation
+    and the one-lane perm8 form's SASS per state."""
     phase("device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -284,6 +347,9 @@ def device_and_build(torch, kernels, native):
     for op in PROBE_OPS:
         log(f"SASS of one {op}: " + ", ".join(
             f"{c} {mix[op][c]:.2f}" for c in CLASSES))
+    for name, info in ptxas_by_function(out).items():
+        if any(k + "_kernel" in name for k in MXU_KERNELS):
+            log(f"  ptxas {name}: {info}")
     for name, counts in sorted(sass_by_pipe(kernels, so).items()):
         if form_of(name):
             log(f"SASS of {form_of(name)} (per lane, static): " + ", ".join(
@@ -797,8 +863,9 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
     return records
 
 
-def small_reference(torch, dev):
-    """Two chained folds of TorchNifs on the card vs the host NIFS."""
+def small_reference(torch, dev, general):
+    """Two chained folds of TorchNifs on the card vs the host NIFS, with
+    the row-constant or a general dense Ajtai scheme."""
     from latticeum_tpu_torch.host.commit.ajtai import AjtaiScheme
     from latticeum_tpu_torch.host.crypto.transcript import Transcript
     from latticeum_tpu_torch.host.field import goldilocks as glr, host as H
@@ -819,7 +886,9 @@ def small_reference(torch, dev):
         z = get_test_z(x)
         wit = Witness.from_w_ccs(z_to_device(z[2:]), TEST_B, TEST_L)
         if scheme is None:
-            scheme = AjtaiScheme.from_seed(kappa=4, n=wit.f[0].shape[0])
+            n = int(wit.f[0].shape[0])
+            scheme = (AjtaiScheme.from_seed_general(4, n, seed=2) if general
+                      else AjtaiScheme.from_seed(kappa=4, n=n))
         cms.append(CCCS(cm=scheme.commit_host(wit.f), x_ccs=z[:1]))
         wits.append(wit)
     acc_wit = Witness.from_w_ccs(glr.zeros((ccs.n - ccs.l - 1, 24)), TEST_B,
@@ -828,8 +897,9 @@ def small_reference(torch, dev):
                                x_ccs=[H.ntt_zero()]), acc_wit, Transcript(),
                           ccs)
     e = Engine(ccs, dev)
-    dn = TorchNifs(e, ccs, params,
-                   [[int(v) for v in r] for r in glr.to_int(scheme.rows_limbs)])
+    dn = TorchNifs(e, ccs, params, scheme)
+    if dn.general_ajtai != general:
+        fail("TorchNifs took the wrong Ajtai route")
     acc_h, w_h, acc_d = acc, acc_wit, acc
     w_d = dn.build_witness(e.put(acc_wit.w_ccs))
     for i, (cm_i, wit) in enumerate(zip(cms, wits), start=1):
@@ -842,7 +912,283 @@ def small_reference(torch, dev):
                 or acc_h != acc_d):
             fail(f"small fold {i} differs from the host NIFS")
     log("small reference: 2 chained folds match the host NIFS (transcript, "
-        "proofs, accumulator)")
+        "proofs, accumulator), "
+        + ("general dense Ajtai scheme" if general else
+           "row-constant Ajtai scheme"))
+
+
+def int8_err(a, b):
+    """Largest |a - b| over two int8 tensors of one shape."""
+    if a.shape != b.shape:
+        fail(f"shapes {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+
+def claims_checks(torch, np, gl, mxu, prover, dev, rate, mix):
+    """digit_split and plane_recombine against their twins at edge shapes
+    and at the four production shapes of the claims; ring_contract against
+    the slot-wise products at edge shapes and at the fold-eta and dec-v
+    shapes; every part timed beside its bound.  Returns the two kernels'
+    records, at the fold-eta shape (the largest contraction of a step)."""
+    from latticeum_tpu_torch.host.nifs.structs import TAU
+    from latticeum_tpu_torch.zkvm import claims
+    ccs, K = prover.ccs, prover.params.K
+    rng = np.random.default_rng(11)
+    edges = gl.from_int([0, 1, gl.P - 1, gl.P - 2, 0xFFFFFFFF, 1 << 32,
+                         1 << 63, 0x7F7F7F7F7F7F7F7F, 0x8080808080808080],
+                        dev)
+    worst = {k: 0 for k in MXU_KERNELS}
+
+    def rnd(*shape):
+        x = torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, shape, dtype=np.uint64))).to(dev)
+        m = min(x.numel(), edges.numel())
+        x.view(-1)[:m] = edges[:m]
+        return x
+
+    def shape_of(rows, n, t_layout):
+        return (rows, 24, n) if t_layout else (rows, n, 24)
+
+    def split(x, t_layout, label):
+        got = mxu.digit_split(x, t_layout)
+        e = int8_err(got.data, mxu.digit_split_twin(x, t_layout).data)
+        worst["digit_split"] = max(worst["digit_split"], e)
+        if e:
+            fail(f"digit_split {label}: max_abs_err={e} against its twin")
+        return got
+
+    def recombine(O, t, kb, label):
+        start = rnd(t, kb, 24)
+        e = u64_err(gl, np, mxu.plane_recombine(O, start.clone()),
+                    mxu.plane_recombine_twin(O, start.clone()))
+        worst["plane_recombine"] = max(worst["plane_recombine"], e)
+        if e:
+            fail(f"plane_recombine {label}: max_abs_err={e} against its twin")
+
+    def contract(A, B, t_layout, label):
+        """ring_contract against the claims' slot-wise forms (t-layout:
+        f_hat rows against one eq table, as on the main path)."""
+        got = mxu.ring_contract(A, B, t_layout)
+        if t_layout:
+            want, ms = timed_once(torch, lambda: claims.eval_fhat_slotwise(
+                A, B[0])[:, None])
+        else:
+            want, ms = timed_once(torch, lambda: claims.eval_claims_slotwise(
+                A, B).transpose(0, 1))
+        if not torch.equal(got, want):
+            fail(f"ring_contract {label} differs from the slot-wise products")
+        return ms
+
+    # edge shapes: one column, ragged columns, several chunks (CHUNK_N cut
+    # down), padding rows and columns in every chunk
+    chunk0 = mxu.CHUNK_N
+    try:
+        for rows, kb, n, t_layout, chunk in (
+                (1, 1, 1, False, chunk0), (3, 1, 100, True, chunk0),
+                (2, 3, 37, False, 16), (4, 1, 1000, True, 256),
+                (1, 1, 33, True, 16), (5, 4, 4100, False, 1024)):
+            mxu.CHUNK_N = chunk
+            label = f"{rows}x{kb}, n={n}, chunk {chunk}" + (
+                ", t-layout" if t_layout else "")
+            A = rnd(*shape_of(rows, n, t_layout))
+            B = rnd(*shape_of(kb, n, t_layout))
+            split(A, t_layout, label)
+            split(B, t_layout, label)
+            contract(A, B, t_layout, label)
+    finally:
+        mxu.CHUNK_N = chunk0
+    for t, kb in ((1, 1), (3, 2), (2, 1), (7, 5)):
+        ra, rb = -(-27 * t // 8) * 8, -(-27 * kb // 8) * 8
+        O = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, ra, rb),
+                                          dtype=np.int64).astype(np.int32))
+        O.view(-1)[:4] = torch.tensor([-(1 << 31), (1 << 31) - 1, -1, 0],
+                                      dtype=torch.int32)
+        recombine(O.to(dev), t, kb, f"{t}x{kb}")
+    log("digit_split, plane_recombine and ring_contract bit-exact at the "
+        "edge shapes (several chunks, padding, int32 extremes)")
+
+    t, n, m = ccs.t, ccs.n, ccs.m
+    cases = (("dec u", False, (t, n, 24), (K, n, 24)),
+             ("fold eta", False, (t, n, 24), (2 * K, n, 24)),
+             ("dec v", True, (K * TAU, 24, m), (1, 24, m)),
+             ("lin v", True, (TAU, 24, m), (1, 24, m)))
+    records = []
+    for label, t_layout, sa, sb in cases:
+        A, B = rnd(*sa), rnd(*sb)
+        pa = split(A, t_layout, f"{label} A{sa}")
+        pb = split(B, t_layout, f"{label} B{sb}")
+        ta, tb = sa[0], sb[0]
+        chunks = list(zip(pa.chunks(), pb.chunks()))
+        O = torch.empty((8, pa.rows_pad, pb.rows_pad), dtype=torch.int32,
+                        device=dev)
+
+        def gemms():
+            for la, lb in chunks:
+                for s in range(8):
+                    torch._int_mm(la[s], lb[s].t(), out=O[s])
+        gemms()
+        recombine(O, ta, tb, label)
+        acc = torch.zeros((ta, tb, 24), dtype=gl.DTYPE, device=dev)
+        ms = {"split A": cuda_ms(torch, lambda: mxu.digit_split(A, t_layout),
+                                 3),
+              "split B": cuda_ms(torch, lambda: mxu.digit_split(B, t_layout),
+                                 3),
+              "int_mm": cuda_ms(torch, gemms, 3),
+              "recombine": cuda_ms(torch, lambda: mxu.plane_recombine(O, acc),
+                                   3),
+              "ring_contract": cuda_ms(torch, lambda: mxu.ring_contract(
+                  A, B, t_layout), 3)}
+        twin = {"split A": timed_once(torch, lambda: mxu.digit_split_twin(
+                    A, t_layout))[1],
+                "recombine": timed_once(torch, lambda: mxu.plane_recombine_twin(
+                    O, acc.clone()))[1]}
+        if label in ("fold eta", "dec v"):
+            twin["slot-wise"] = contract(A, B, t_layout, label)
+        nchunks = len(chunks)
+        split_bytes = 8 * A.numel() + pa.data.numel()
+        split_work = {"fma": 0, "alu": DIGIT_OPS * A.numel(),
+                      "total": DIGIT_OPS * A.numel()}
+        split_b = bound(rate, split_bytes, split_work)
+        mm_ops = 2 * (27 * ta) * pa.n * (27 * tb) * 8
+        mm_bytes = (pa.data.numel() + pb.data.numel()
+                    + 4 * O.numel() * nchunks)
+        mm_bound = max(mm_ops / INT8_OPS_PER_S, mm_bytes / HBM_BYTES_PER_S)
+        rec_bytes = 4 * 8 * (27 * ta) * (27 * tb) + 16 * ta * tb * 24
+        rec_one = pipes(RECOMBINE_OPS, mix)
+        rec_work = {c: ta * tb * 24 * (rec_one[c] + (c != "fma") * 243)
+                    for c in CLASSES}
+        rec_b = bound(rate, rec_bytes, rec_work)
+        log(f"claims {label}: A{sa} x B{sb}{' t-layout' if t_layout else ''}"
+            f", {nchunks} chunk(s) of {pa.chunk}, GEMM per slot and chunk "
+            f"{pa.rows_pad} x {pa.chunk} x {pb.rows_pad}: bit-exact; ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + "; plain (one call): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in twin.items()))
+        log(f"claims {label} bounds: split A {split_b[0]:.4f} ms by "
+            f"{split_b[2]} ({split_bytes} bytes), {100 * split_b[0] / ms['split A']:.1f}"
+            f" %; int_mm {1e3 * mm_bound:.4f} ms ({mm_ops:.4g} int8 "
+            f"operations at {INT8_OPS_PER_S:.4g}/s, {mm_bytes} bytes), "
+            f"{100e3 * mm_bound / ms['int_mm']:.1f} %; recombine "
+            f"{rec_b[0]:.5f} ms by {rec_b[2]} ({rec_bytes} bytes), "
+            f"{100 * rec_b[0] / ms['recombine']:.1f} % (per chunk)")
+        if label == "fold eta":
+            records.append(record(
+                "digit_split", MXU_SOURCE, worst["digit_split"],
+                ms["split A"], twin["split A"], rate, split_bytes,
+                split_work))
+            records.append(record(
+                "plane_recombine", MXU_SOURCE, worst["plane_recombine"],
+                ms["recombine"], twin["recombine"], rate, rec_bytes,
+                rec_work))
+        del A, B, pa, pb, chunks, O, acc
+        torch.cuda.empty_cache()
+    for r in records:
+        r["max_abs_err"] = worst[r["name"]]
+    return records
+
+
+def general_commit(torch, np, gl, prover, dev):
+    """One production-size general Ajtai commit (the K - 1 commits of a
+    decomposition) against the plain chunked matvec, timed."""
+    from latticeum_tpu_torch.host.commit.ajtai import AjtaiScheme
+    from latticeum_tpu_torch.zkvm.accel_nifs import TorchNifs, matvec_general
+    p = prover.params
+    n = prover.layout.w_size * p.L
+    t0 = time.time()
+    scheme = AjtaiScheme.from_seed_general(p.KAPPA, n, seed=0)
+    t_scheme = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dn = TorchNifs(prover.dn.e, prover.ccs, p, scheme)
+    torch.cuda.synchronize()
+    t_up = time.time() - t0
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy(gl.to_i64_bits(rng.integers(
+        0, gl.P, (p.K - 1, n, 24), dtype=np.uint64))).to(dev)
+    got = dn._commit_many(f)
+    mat = gl.from_limbs(scheme.matrix, dev)    # the reference's own copy
+    want, twin_ms = timed_once(torch, lambda: matvec_general(mat, f))
+    if not torch.equal(got, want):
+        fail("the general Ajtai commit differs from the plain matvec")
+    ms = cuda_ms(torch, lambda: dn._commit_many(f), 3)
+    ops = 2 * (27 * p.KAPPA) * n * (27 * (p.K - 1)) * 8
+    log(f"general Ajtai commit, kappa={p.KAPPA}, N={n}, {p.K - 1} witnesses: "
+        f"bit-exact with the chunked matvec; {ms:.3f} ms (split of the "
+        f"witnesses, int8 products, recombination; {ops:.4g} int8 operations"
+        f", bound {1e3 * ops / INT8_OPS_PER_S:.4f} ms), plain matvec "
+        f"{twin_ms:.1f} ms; the matrix ({p.KAPPA * n * 24 * 8} bytes) "
+        f"uploaded and split once in {t_up:.2f} s, sampled on the host in "
+        f"{t_scheme:.2f} s")
+    del dn, mat, f, got, want
+    torch.cuda.empty_cache()
+
+
+def resume_checks(torch, cont, ckdir, xorshift_guest, new_vm_1mb,
+                  default_params, TorchZkVmProver):
+    """A fresh debug prover resumes the xorshift run from its step-2
+    checkpoint and must equal the continuous run after step 3; then a step
+    whose z was changed must fail the relation check."""
+    from latticeum_tpu_torch.zkvm import prover as prover_mod
+    t0 = time.time()
+    fresh = TorchZkVmProver(default_params(), device="cuda", debug=True)
+    log(f"fresh prover (debug): {time.time() - t0:.2f} s")
+    res = prove(fresh, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
+                "xorshift_guest(64) resumed after step 2", torch,
+                checkpoint_dir=ckdir, resume=True)
+    if res["acc0"] != [XORSHIFT_ACC0[2]]:
+        fail(f"resumed run: acc_comm[0] {res['acc0']} after step 3")
+    st = res["state"]
+    for k in ("acc_comm", "z_i_comm", "ivc_step_comm", "folding_proof_vars"):
+        if getattr(st, k) != getattr(cont, k):
+            fail(f"resumed run: {k} differs from the continuous run")
+    for k in ("h", "r", "v", "cm", "u"):
+        if getattr(st.acc, k) != getattr(cont.acc, k):
+            fail(f"resumed run: acc.{k} differs from the continuous run")
+    checks = fresh.timings.get("relation_check", [])
+    if len(checks) != 1:
+        fail(f"resumed run: {len(checks)} relation checks for 1 step")
+    log(f"resumed run equals the continuous one after step 3 (acc_comm, "
+        f"z_i_comm, ivc_step_comm, acc h/r/v/cm/u, collector vars); "
+        f"relation check {checks[0]:.3f} s, host verifier "
+        f"{fresh.timings['native_verify'][0]:.3f} s")
+    real = prover_mod.arithmetize
+
+    def changed(inp, lay):
+        # the value the step's instruction writes to rd (the guest's first
+        # instruction is a LUI, whose gate constrains it)
+        z = real(inp, lay)
+        i = lay.val_rd_out_idx
+        z[i] = [(v + 1) % (2 ** 64 - 2 ** 32 + 1) for v in z[i]]
+        return z
+    prover_mod.arithmetize = changed
+    try:
+        fresh.prove_vm(new_vm_1mb().load_elf_data(xorshift_guest(64)),
+                       max_steps=1)
+    except AssertionError as e:
+        log(f"changed z: the debug prover raised: {e}")
+    else:
+        fail("a step with a changed z passed the relation check")
+    finally:
+        prover_mod.arithmetize = real
+    del fresh
+    torch.cuda.empty_cache()
+
+
+def cli_check():
+    """The port's CLI on the card: one debug step of the fib guest."""
+    cmd = [sys.executable, "-m", "latticeum_tpu_torch.zkvm.cli", "--builtin",
+           "fib100", "--max-steps", "1", "--vm-size", "1mb", "--debug"]
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"{' '.join(cmd[1:])} exited {res.returncode}: "
+             f"{res.stdout[-1500:]}{res.stderr[-3000:]}")
+    last = res.stdout.strip().splitlines()[-1]
+    out = json.loads(last)
+    if out.get("steps_folded") != 1 or len(out.get("acc_comm", [])) != 4:
+        fail(f"the CLI's result line: {last}")
+    log(f"cli ({time.time() - t0:.1f} s): {last}")
 
 
 def check_acc0(name, got, want):
@@ -886,7 +1232,10 @@ def record_folds(prover):
     return folds
 
 
-def prove(prover, vm, steps, name, torch):
+def prove(prover, vm, steps, name, torch, **options):
+    """prove_vm up to `steps` (options: checkpoint_dir, checkpoint_every,
+    resume), with each folded step's time and acc_comm[0] logged.  Returns
+    {"acc0": acc_comm[0] after each step folded, "state": the last state}."""
     from latticeum_tpu_torch.zkvm.commitments import IncrementalMemTree
     prover.timings = {}
     marks, acc0 = [time.time()], []
@@ -897,7 +1246,7 @@ def prove(prover, vm, steps, name, torch):
         acc0.append(state.acc_comm[0])
         log(f"{name} step {step}: {marks[-1] - marks[-2]:.2f} s "
             f"acc_comm[0]={state.acc_comm[0]:#x}")
-    state = prover.prove_vm(vm, max_steps=steps, on_step=on_step)
+    state = prover.prove_vm(vm, max_steps=steps, on_step=on_step, **options)
     if state.steps != steps:
         fail(f"{name} folded {state.steps} of {steps} steps")
     if len(state.acc_comm) != 4 or not all(
@@ -911,7 +1260,7 @@ def prove(prover, vm, steps, name, torch):
             for part in IncrementalMemTree.PARTS))
     log(f"{name} max_memory_allocated: {torch.cuda.max_memory_allocated()} "
         f"bytes")
-    return {"acc0": acc0}
+    return {"acc0": acc0, "state": state}
 
 
 if __name__ == "__main__":

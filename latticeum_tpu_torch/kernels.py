@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("comb.cu", "poseidon2.cu")
+SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -108,6 +108,8 @@ def lib():
                                      vp],
         "lt_perm8": [vp] * 3 + [i64, i32, vp],
         "lt_sponge8": [vp] * 3 + [i64, i64, i32, vp],
+        "lt_digit_split": [vp] * 2 + [i32] * 2 + [i64] + [i32] * 5 + [vp],
+        "lt_plane_recombine": [vp] * 2 + [i64] * 4 + [vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)

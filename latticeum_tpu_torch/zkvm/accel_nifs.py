@@ -1,9 +1,10 @@
 """The NIFS fold step on the device with a host transcript.
 
 Counterpart of ``latticeum_tpu/zkvm/accel_nifs.py::DeviceNifs`` on its main
-path (t-layout, eq-factored rounds, row-constant Ajtai matrix).  Messages,
-claims and the folded accumulator are bit-identical to the host path
-``latticeum_tpu/nifs/nifs.py::prove``.
+path (t-layout, eq-factored rounds, evaluation claims as int8 digit-plane
+products), with the row-constant Ajtai matrix or a general dense one.
+Messages, claims and the folded accumulator are bit-identical to the host
+path ``latticeum_tpu/nifs/nifs.py::prove``.
 
 Witness tensors: w_ccs, f_coeff, f are (rows, 24) in standard layout; f_hat
 is born in the t-layout (TAU, 24, npad) with a bit-reversed hypercube, so
@@ -17,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from ..field import goldilocks as gl
+from ..field import goldilocks as gl, mxu
 from ..host.field import host as H
 from ..host.nifs import decomposition as dec, folding as fold
 from ..host.nifs import linearization as lin, nifs as nifs_mod
@@ -73,15 +74,42 @@ class TorchWitness:
         self.f_hat = f_hat
 
 
+AJTAI_CHUNK = 1 << 12
+
+
+def matvec_general(mat, f):
+    """Dense Ajtai matvec as chunked slot products (the JAX package's
+    ``DeviceNifs._matvec_general``, accel_nifs.py:316): mat (kappa, N, 24),
+    f (..., N, 24) -> (..., kappa, 24).  The plain reference of the
+    digit-plane commit."""
+    acc = None
+    for start in range(0, mat.shape[-2], AJTAI_CHUNK):
+        a = mat[:, start:start + AJTAI_CHUNK]                 # (kappa, c, 24)
+        x = f[..., None, start:start + AJTAI_CHUNK, :]        # (..., 1, c, 24)
+        part = gl.sum_axis(rq.ntt_mul(a, x), -2)
+        acc = part if acc is None else gl.add(acc, part)
+    return acc
+
+
 class TorchNifs:
-    def __init__(self, engine, ccs, params, ajtai_rows):
-        """ajtai_rows: host (kappa, 24) ints of the row-constant Ajtai
-        matrix (commitment_scheme.rs:29-33 structure): cm_k = row_k * sum f."""
+    def __init__(self, engine, ccs, params, scheme):
+        """`scheme`: the host ``AjtaiScheme``.  A row-constant one
+        (commitment_scheme.rs:29-33 structure) keeps its (kappa, 24) rows
+        and commits cm_k = row_k * sum f.  Of any other, (kappa, N, 24),
+        only the digit planes are kept on the device, split once here;
+        every commitment is then a digit-plane contraction against them
+        (``mxu.contract``)."""
         self.e = engine
         self.ccs = ccs
         self.p = params
         dev = engine.device
-        self.ajtai_rows = gl.from_int(ajtai_rows, dev)
+        self.general_ajtai = not getattr(scheme, "row_constant", False)
+        self.ajtai_rows = self._ajtai_planes = None
+        if self.general_ajtai:
+            self._ajtai_planes = mxu.digit_split(
+                gl.from_limbs(scheme.matrix, dev))
+        else:
+            self.ajtai_rows = gl.from_limbs(scheme.rows_limbs, dev)
         self._cap = engine.max_row + 1
         self._cap_pow2 = min(1 << (self._cap - 1).bit_length(), ccs.m)
         signs = lin_c_signs(ccs.c)
@@ -125,14 +153,18 @@ class TorchNifs:
         return TorchWitness(dc.gadget_recompose(f, self.p.B, self.p.L),
                             f_coeff, f, self._fhat_t(f_coeff))
 
-    def _commit_totals(self, totals):
-        """Row-constant Ajtai commitments of (..., 24) witness sums ->
-        (..., kappa, 24)."""
-        return rq.ntt_mul(self.ajtai_rows, totals[..., None, :])
+    def _commit_many(self, fs):
+        """Ajtai commitments of the witnesses fs (B, n, 24) ->
+        (B, kappa, 24): the row-constant shortcut on their sums, or the
+        dense matvec as one digit-plane contraction."""
+        if self.general_ajtai:
+            return mxu.contract(self._ajtai_planes,
+                                mxu.digit_split(fs)).transpose(0, 1)
+        return rq.ntt_mul(self.ajtai_rows, gl.sum_axis(fs, -2)[:, None, :])
 
     def commit(self, f):
         """Ajtai commitment of f (n, 24) -> host rings (kappa x 24 ints)."""
-        return gl.to_int_lists(self._commit_totals(gl.sum_axis(f, -2)))
+        return gl.to_int_lists(self._commit_many(f[None])[0])
 
     # -- tables -------------------------------------------------------------
     def _eq_t(self, point, npad):
@@ -186,8 +218,8 @@ class TorchNifs:
         f_b = rq.crt(ks)                                      # (K, nf, 24)
         w_b = dc.gadget_recompose(f_b, p.B, p.L)              # (K, nw, 24)
         fhat_b = self._fhat_t(ks)                             # (K, TAU, 24, npad)
-        # row-constant commits for k >= 1; y_0 = cm - sum_k b^k y_k
-        cms = self._commit_totals(gl.sum_axis(f_b[1:], -2))   # (K-1, kappa, 24)
+        # commits for k >= 1; y_0 = cm - sum_k b^k y_k
+        cms = self._commit_many(f_b[1:])                      # (K-1, kappa, 24)
         bp = gl.from_int([pow(p.B_SMALL, k, gl.P) for k in range(1, p.K)],
                          dev)
         y0 = gl.sub(self.e.ints([list(c) for c in cm_i.cm]),

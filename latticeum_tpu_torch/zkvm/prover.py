@@ -9,7 +9,10 @@ Arithmetization, the collector and the transcript are the host copy
 (``..host``).  ``commit_z`` and the NIFS fold run as torch tensors on
 `device` (``TorchNifs``), and the memory and code Merkle trees are built
 there through the sponge8 and perm8 kernels (``commitments.py``);
-``timings["trees"]`` is their host time in each ``prove_vm``.
+``timings["trees"]`` is their host time in each ``prove_vm``.  With
+``debug``, every step checks the CCS relation of its z on the device
+before the commit (``timings["relation_check"]``) and every fold against
+the host NIFS verifier (``timings["native_verify"]``).
 
     TorchZkVmProver(device="cuda").prove_vm(vm, max_steps=...)
 """
@@ -39,6 +42,7 @@ from ..host.zkvm.commitments import ZERO_COMM, hash_wide
 from ..host.zkvm.layout import CCSLayout
 from ..host.zkvm.params import default_params
 from ..host.zkvm.witness import IVCStepInput, arithmetize
+from ..ring import rq
 from .accel import Engine
 from .accel_nifs import TorchNifs
 from .commitments import IncrementalMemTree, ZkVmCommitter
@@ -59,10 +63,14 @@ class IVCState:
 
 class TorchZkVmProver:
     def __init__(self, params=None, scheme_seed: int = 0, device="cuda",
-                 log=None):
-        """The row-constant Ajtai scheme of `scheme_seed` only (the fold step
-        commits with row totals); the prover runs on `device`, a card unless
-        the caller names the CPU."""
+                 log=None, debug: bool = False,
+                 reference_scheme: bool = False, general_ajtai: bool = False):
+        """The prover runs on `device`, a card unless the caller names the
+        CPU.  The Ajtai scheme: row-constant from `scheme_seed` (the
+        default), the reference's matrix (`reference_scheme`, one ring
+        element drawn from ark_std::test_rng, row-constant too), or a dense
+        uniform matrix from `scheme_seed` (`general_ajtai`, a binding
+        commitment; about 0.6 GB on the device at production size)."""
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TorchZkVmProver(device='cuda'): no CUDA device")
@@ -72,19 +80,23 @@ class TorchZkVmProver:
         self.dp = DecompositionParams(B=self.params.B, L=self.params.L,
                                       B_SMALL=self.params.B_SMALL,
                                       K=self.params.K)
-        self.scheme = AjtaiScheme.from_seed(
-            self.params.KAPPA, self.layout.w_size * self.params.L,
-            seed=scheme_seed)
-        if not getattr(self.scheme, "row_constant", False):
-            raise ValueError("the torch fold step needs a row-constant "
-                             "Ajtai matrix")
+        n_ajtai = self.layout.w_size * self.params.L
+        if reference_scheme:
+            self.scheme = AjtaiScheme.from_reference_rng(self.params.KAPPA,
+                                                         n_ajtai)
+        elif general_ajtai:
+            self.scheme = AjtaiScheme.from_seed_general(
+                self.params.KAPPA, n_ajtai, seed=scheme_seed)
+        else:
+            self.scheme = AjtaiScheme.from_seed(self.params.KAPPA, n_ajtai,
+                                                seed=scheme_seed)
         self.device = dev
+        self.debug = debug
         self.committer = ZkVmCommitter(dev)
         self.timings = {}
         self.log = log
         self.dn = TorchNifs(Engine(self.ccs, dev), self.ccs, self.params,
-                            gl.to_int_lists(gl.from_limbs(
-                                self.scheme.rows_limbs)))
+                            self.scheme)
 
     # -- pieces ----------------------------------------------------------
     def initialize_accumulator(self, initial_step_comm=ZERO_COMM):
@@ -115,6 +127,26 @@ class TorchZkVmProver:
         return nifs_mod.verify(acc, cm_i, proof, Transcript(), self.ccs,
                                self.dp)
 
+    def check_relation(self, z_rings, trace):
+        """Raise AssertionError unless z satisfies the CCS relation."""
+        check_relation(self.dn.e, self.ccs, self.dn.e.ints(z_rings),
+                       trace.instruction.name)
+
+    def save_checkpoint(self, path, state, vm, mem_ops_comm):
+        """The host checkpoint of `state`; the witness is kept as its
+        f_coeff limbs."""
+        host_w = SimpleNamespace(f_coeff=gl.to_limbs(state.w_acc.f_coeff))
+        ckpt.save(path, dataclasses.replace(state, w_acc=host_w), vm,
+                  mem_ops_comm, self.params)
+
+    def load_checkpoint(self, path, vm):
+        """(meta, acc, witness on the device, ivc_step_comm) of a checkpoint;
+        restores the VM's machine state."""
+        meta, acc, w_host, step_comm = ckpt.load(path, vm, self.params)
+        f_coeff = self.dn.e.put((np.asarray(w_host.f_coeff[0]),
+                                 np.asarray(w_host.f_coeff[1])))
+        return meta, acc, self.dn.witness_from_f_coeff(f_coeff), step_comm
+
     # -- main loop --------------------------------------------------------
     def prove_vm(self, vm, max_steps=None, on_step=None,
                  checkpoint_dir=None, checkpoint_every=10, resume=False):
@@ -134,7 +166,7 @@ class TorchZkVmProver:
         if resume and checkpoint_dir:
             path = ckpt.latest(checkpoint_dir)
             if path:
-                resumed = ckpt.load(path, vm, self.params)
+                resumed = self.load_checkpoint(path, vm)
 
         # one page tree on the device gives both the root and the levels;
         # both trees end in a fetch to the host, so the clock is synchronized
@@ -159,9 +191,6 @@ class TorchZkVmProver:
                              folding_proof=None, folding_proof_vars=None)
         else:
             meta, acc_r, w_acc_r, step_comm_r = resumed
-            w_acc_r = self.dn.witness_from_f_coeff(
-                self.dn.e.put((np.asarray(w_acc_r.f_coeff[0]),
-                               np.asarray(w_acc_r.f_coeff[1]))))
             mem_ops_comm = list(meta["mem_ops_comm"])
             state = IVCState(ivc_step_comm=step_comm_r,
                              ivc_step=meta["step"],
@@ -209,11 +238,19 @@ class TorchZkVmProver:
 
             z = arithmetize(inp, self.layout)
             mark("arithmetize")
+            if self.debug:
+                self.check_relation(z, trace)
+                mark("relation_check")
             cm_i, w_i = self.commit_z(z)
             mark("commit_z")
             folded_acc, folded_w, proof = self.fold(state.acc, state.w_acc,
                                                     cm_i, w_i)
             mark("fold_total")
+            if self.debug:
+                if self.verify_fold(state.acc, cm_i, proof) != folded_acc:
+                    raise AssertionError(f"fold of step {step}: the host "
+                                         "NIFS verifier disagrees")
+                mark("native_verify")
             # replay the prover's recorded transcript samples (bit-exact)
             samples = self._last_fold_samples
             fvars = generate_verification_witness_vars(
@@ -240,13 +277,9 @@ class TorchZkVmProver:
             self.timings.setdefault("step_times", []).append(time.time() - t0)
             if checkpoint_dir and step % checkpoint_every == 0:
                 os.makedirs(checkpoint_dir, exist_ok=True)
-                # the checkpoint keeps the witness as its f_coeff limbs
-                host_w = SimpleNamespace(
-                    f_coeff=gl.to_limbs(state.w_acc.f_coeff))
-                ckpt.save(os.path.join(checkpoint_dir,
-                                       f"ivc_step_{step}.npz"),
-                          dataclasses.replace(state, w_acc=host_w), vm_ref,
-                          mem_ops_comm, self.params)
+                self.save_checkpoint(os.path.join(
+                    checkpoint_dir, f"ivc_step_{step}.npz"), state, vm_ref,
+                    mem_ops_comm)
             if on_step:
                 on_step(step, state)
 
@@ -261,3 +294,30 @@ class TorchZkVmProver:
         regs_c = hash_wide(list(regs))
         return hash_wide(list(code_comm) + [pc] + list(mem_comm)
                          + list(regs_c) + list(mem_ops_comm))
+
+
+def relation_residual(engine, ccs, z):
+    """The CCS relation's residual sum_i c_i prod_{j in S_i} M_j z over the
+    rows the matrices reach, rounded up to a power of two (at most m):
+    (rows, 24), zero where z satisfies it.  Counterpart of the JAX
+    ``ZkVmProver._relation_residual_device`` (prover.py:402)."""
+    rows = min(1 << engine.max_row.bit_length(), ccs.m)
+    mz = engine.mz_stack(z, rows, engine.rows)                # (t, rows, 24)
+    consts = gl.from_int([list(c) for c in ccs.c], engine.device)
+    total = None
+    for c, S in zip(consts, ccs.S):
+        prod = mz[S[0]]
+        for j in S[1:]:
+            prod = rq.ntt_mul(prod, mz[j])
+        term = rq.ntt_mul(prod, c[None])
+        total = term if total is None else gl.add(total, term)
+    return total
+
+
+def check_relation(engine, ccs, z, what):
+    """Raise AssertionError naming `what` and the first failing rows unless
+    the residual of z is zero."""
+    bad = torch.nonzero((relation_residual(engine, ccs, z) != 0).any(-1))
+    if len(bad):
+        raise AssertionError(f"CCS relation failed for {what} at rows "
+                             f"{bad[:10, 0].tolist()}")

@@ -62,8 +62,7 @@ def fixture_chain():
 
 
 def torch_nifs(ccs, scheme, device):
-    rows = [[int(v) for v in r] for r in gl_ref.to_int(scheme.rows_limbs)]
-    return TorchNifs(Engine(ccs, device), ccs, PARAMS, rows)
+    return TorchNifs(Engine(ccs, device), ccs, PARAMS, scheme)
 
 
 def check_chain(device):
@@ -263,7 +262,7 @@ def test_jax_device_lin_reuses_first_betas_in_reconstruction():
         return out
 
     host = run(lambda t: lin.prove(cm_i, wit, t, ccs)[1])
-    dn = TorchNifs(Engine(ccs, "cpu"), ccs, params, rows)
+    dn = TorchNifs(Engine(ccs, "cpu"), ccs, params, scheme)
     w_t = dn.build_witness(dn.e.put(wit.w_ccs))
     assert run(lambda t: dn.lin_prove(cm_i, w_t, t)[1]) == host
     with smoke.stale_lin_betas():

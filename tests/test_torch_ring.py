@@ -11,7 +11,7 @@ from latticeum_tpu.field import goldilocks as gl_ref
 from latticeum_tpu.ring import decompose as dc_ref, ref_impl as R, rq as rq_ref
 from latticeum_tpu_torch.field import goldilocks as gl
 from latticeum_tpu_torch.ring import decompose as dc, rq
-from tests.test_ring import GOLDEN_NTT, GOLDEN_POLY
+from test_ring import GOLDEN_NTT, GOLDEN_POLY
 
 P = gl.P
 
