@@ -36,29 +36,43 @@ Phases (each prints its own lines; any failure exits non-zero):
               products at the fold-eta and dec-v shapes; times of the split,
               the torch._int_mm products, the recombination, the whole
               contraction and the slot-wise form, each beside its bound;
-  6. small    two chained folds of the port on the card against the host
+  6. fiat-shamir  round_tail (crypto/challenger.py, csrc/challenger.cu)
+              against its twin, bit for bit, at the production lin and fold
+              round shapes and unweighted (the lin reconstruction rounds),
+              each at every pending length 0 ... 11, and over a chain of 34
+              launches (a step's 17 lin and 17 fold rounds) against the
+              twin's chain; perm16_chain against its twin; each shape timed
+              (CUDA graph) beside its bound and the chain of its
+              permutations alone (the latency floor);
+  7. small    two chained folds of the port on the card against the host
               NIFS on the test CCS (transcript, proofs, accumulator), with
               the row-constant and with a general dense Ajtai scheme; one
               production-size general commit (kappa 32, N 98815, 14
               witnesses) against the plain chunked matvec, timed;
-  7. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+  8. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
               xorshift_guest(64) with acc_comm[0] pinned after each step
               (a checkpoint written after step 2), then 2 steps of the
               bench's fib guest; every fold of both passes the host NIFS
               verifier with the same folded accumulator; launch counts of
               every kernel (perm8 and sponge8 included: the memory and code
               trees of each prove_vm) > 0, and ring_contract called; each
-              prove_vm's tree time and its parts;
-  8. resume   a fresh TorchZkVmProver(debug=True) resumes from the step-2
+              prove_vm's tree time and its parts; every lin and fold
+              sum-check made exactly one device -> host copy (its lin
+              reconstruction rounds included) and, under
+              torch.cuda.set_sync_debug_mode("error"), no other
+              synchronizing call;
+  9. resume   a fresh TorchZkVmProver(debug=True) resumes from the step-2
               checkpoint and folds step 3: it must equal the continuous run
               (acc_comm, z_i_comm, ivc_step_comm, the accumulator's h, r, v,
               cm, u, the collector's vars) and reach the pinned acc_comm[0];
               its relation check ran; a step whose z was changed must raise;
-  9. cli      python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
+  10. cli     python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
               --max-steps 1 --vm-size 1mb --debug prints its JSON line;
- 10. replay   the same 3 xorshift steps with the JAX package's stale
-              lin-reconstruction betas replayed (ROADMAP C.h9) must give the
-              acc_comm[0] values that package recorded on its TPU.
+ 11. replay   the same 3 xorshift steps with the JAX package's stale
+              lin-reconstruction betas replayed (ROADMAP C.h9: the first lin
+              call's betas handed to every later call's reconstruction
+              rounds) must give the acc_comm[0] values that package
+              recorded on its TPU.
 Then one JSON line of kernel records, the nvidia-smi name/power line, and
 the result line {"ok": true, "device": {...}}.  Imports no jax and nothing
 of the JAX package.
@@ -74,8 +88,10 @@ cuobjdump: csrc/poseidon2.cu built once more with its round loops
 unrolled (-DP8_STRAIGHT_LINE) gives the one-lane perm8 kernel as
 straight-line code, whose SASS is the count per permutation; every form
 of perm8 and sponge8 is bounded by that count times its permutations,
-whatever loops and shuffles its own SASS has;
-the comb kernels loop, so their count is the field
+whatever loops and shuffles its own SASS has; round_tail likewise by
+its permutations times the SASS of one width-16 permutation, from
+csrc/challenger.cu built with -DCH_STRAIGHT_LINE into a straight-line
+one-thread kernel; the comb kernels loop, so their count is the field
 operations of their bodies (from the shapes) times each operation's SASS,
 counted in probe kernels that chain that operation of csrc/field.cuh.  The
 digit-plane kernels are counted from their functions, never from their own
@@ -155,12 +171,15 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "perm8_sponge": "latticeum_tpu/parallel/pallas_kernels.py:109",
                # XLA functions of the JAX package, no Pallas kernel
                "digit_split": "latticeum_tpu/field/mxu.py:45",
-               "plane_recombine": "latticeum_tpu/field/mxu.py:91"}
+               "plane_recombine": "latticeum_tpu/field/mxu.py:91",
+               "round_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:129"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
+CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
 MXU_KERNELS = ("digit_split", "plane_recombine")
 # The instantiation whose SASS sets the per-permutation work of the bounds.
 PERM8_ONE_LANE = "perm8_kernelILi1EE"
+PERM16_ONE_THREAD = "perm16_straight_kernel"
 # The digit split of one u64 value (field/mxu.py digit_planes): 8 digit
 # steps of 4 integer operations (byte taken, carry added, compared, 256
 # taken off); no multiply.
@@ -202,13 +221,14 @@ def main():
     import numpy as np
 
     from latticeum_tpu_torch import kernels
-    from latticeum_tpu_torch.crypto import poseidon2
+    from latticeum_tpu_torch.crypto import challenger, poseidon2
     from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
     from latticeum_tpu_torch.zkvm import comb
 
     dev = torch.device("cuda")
-    card, rate, mix, perm8_sass = device_and_build(torch, kernels, native)
+    card, rate, mix, perm8_sass, perm16_sass = device_and_build(
+        torch, kernels, native)
 
     phase("tree")
     records = tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass)
@@ -234,6 +254,10 @@ def main():
     phase("claims")
     records += claims_checks(torch, np, gl, mxu, prover, dev, rate, mix)
 
+    phase("fiat-shamir")
+    records += fiat_shamir_checks(torch, np, gl, prover, dev, rate,
+                                  perm16_sass)
+
     phase("small reference")
     small_reference(torch, dev, general=False)
     small_reference(torch, dev, general=True)
@@ -245,18 +269,26 @@ def main():
     mxu.reset_launches()
     poseidon2.perm8.launches = 0
     poseidon2.sponge8.launches = 0
+    challenger.round_tail.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
-               "xorshift_guest(64)", torch, checkpoint_dir=ckdir,
-               checkpoint_every=2)
-    prove(prover, new_vm_1mb().load_elf_data(
-        fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
+    with one_fetch_per_sumcheck(torch) as sumchecks:
+        xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
+                   "xorshift_guest(64)", torch, checkpoint_dir=ckdir,
+                   checkpoint_every=2)
+        prove(prover, new_vm_1mb().load_elf_data(
+            fib_const_guest(FIB_RESULT)), 2, "fib_const_guest", torch)
     launches = {w.__name__: w.launches for w in comb.WRAPPERS}
     launches["perm8"] = poseidon2.perm8.launches
     launches["perm8_sponge"] = poseidon2.sponge8.launches
     launches.update({w.__name__: w.launches for w in mxu.KERNELS})
+    launches["round_tail"] = challenger.round_tail.launches
     contractions = mxu.ring_contract.calls
+    log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
+        f"{sumchecks['fold']} fold, each with exactly one device -> host "
+        "copy and no other synchronizing call")
+    if not sumchecks["lin"] or not sumchecks["fold"]:
+        fail("the main path ran no chained sum-check")
     del prover.fold                     # drop the recording wrapper
     log(f"launches on the main path: {launches}; ring_contract calls "
         f"{contractions}")
@@ -306,7 +338,8 @@ def main():
 def device_and_build(torch, kernels, native):
     """The device and build phases.  Returns the nvidia-smi name/power
     line, the rates of the bounds, the probes' SASS per field operation
-    and the one-lane perm8 form's SASS per state."""
+    and the SASS per state of the one-lane perm8 form and of the
+    one-thread width-16 permutation."""
     phase("device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -354,14 +387,23 @@ def device_and_build(torch, kernels, native):
         if form_of(name):
             log(f"SASS of {form_of(name)} (per lane, static): " + ", ".join(
                 f"{c} {counts[c]}" for c in CLASSES))
-    perm8_sass = straight_line_sass(kernels)
+    perm8_sass = straight_line_sass(kernels, "poseidon2.cu",
+                                    "P8_STRAIGHT_LINE", PERM8_ONE_LANE)
     model = pipes(PERM8_OPS, mix)
     log("perm8 straight-line one-lane kernel, SASS per state (the bounds' "
         "work per permutation): " + ", ".join(
             f"{c} {perm8_sass[c]}" for c in CLASSES) + "; its 520 gl_mul "
         "and 722 gl_add at the probes' SASS: " + ", ".join(
             f"{c} {model[c]:.0f}" for c in CLASSES))
-    return card, rate, mix, perm8_sass
+    perm16_sass = straight_line_sass(kernels, "challenger.cu",
+                                     "CH_STRAIGHT_LINE", PERM16_ONE_THREAD)
+    log("perm16 straight-line one-thread kernel, SASS per state (the bound's "
+        "work per width-16 permutation): " + ", ".join(
+            f"{c} {perm16_sass[c]}" for c in CLASSES))
+    for name, info in ptxas_by_function(out).items():
+        if "round_tail" in name or "perm16_chain" in name:
+            log(f"  ptxas {name}: {info}")
+    return card, rate, mix, perm8_sass, perm16_sass
 
 
 def cuda_ms(torch, fn, reps):
@@ -461,27 +503,27 @@ def probe_mix(kernels):
                  for c in CLASSES} for op in PROBE_OPS}
 
 
-def straight_line_sass(kernels):
-    """{"fma", "alu", "total"}: the SASS of one permutation, from
-    csrc/poseidon2.cu built with its round loops unrolled into the
-    one-lane kernel alone (straight-line code, one state a thread)."""
+def straight_line_sass(kernels, source, define, function):
+    """{"fma", "alu", "total"}: the SASS of one permutation, from the
+    kernel source built with `define`, which unrolls its round loops into
+    a one-thread kernel `function` (straight-line code, one state a
+    thread)."""
     kernels.BUILD_DIR.mkdir(exist_ok=True)
-    cubin = kernels.BUILD_DIR / f"perm8_straight.{os.getpid()}.cubin"
+    cubin = kernels.BUILD_DIR / f"{function}.{os.getpid()}.cubin"
     try:
         res = subprocess.run(
-            [kernels.nvcc(), "-cubin", *kernels.ARCH_FLAGS,
-             "-DP8_STRAIGHT_LINE", "-o", str(cubin),
-             str(kernels.CSRC / "poseidon2.cu")],
+            [kernels.nvcc(), "-cubin", *kernels.ARCH_FLAGS, f"-D{define}",
+             "-o", str(cubin), str(kernels.CSRC / source)],
             capture_output=True, text=True)
         if res.returncode != 0:
-            fail("the straight-line perm8 did not build: "
+            fail(f"the straight-line build of {source} failed: "
                  f"{res.stdout}{res.stderr}")
         found = [v for k, v in sass_by_pipe(kernels, cubin).items()
-                 if PERM8_ONE_LANE in k]
+                 if function in k]
     finally:
         cubin.unlink(missing_ok=True)
     if len(found) != 1:
-        fail(f"{PERM8_ONE_LANE} not found once in the straight-line build")
+        fail(f"{function} not found once in the straight-line build")
     return found[0]
 
 
@@ -795,8 +837,8 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
         u = rng.integers(0, gl.P, shape, dtype=np.uint64)
         return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
 
-    def r3():
-        return [int(v) for v in rng.integers(0, gl.P, 3, dtype=np.uint64)]
+    def r3():                           # the challenge, read on the card
+        return rnd(3)
 
     sets_small = comb.lin_sets([(0, 3, 5), (1,), (2, 4)], (1, -1, 1), 6, dev)
     deg_q = ccs.d + 1
@@ -861,6 +903,136 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
         del args, X
         torch.cuda.empty_cache()
     return records
+
+
+def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass):
+    """round_tail against its twin (the wrapper on CPU copies of the same
+    inputs), bit for bit: at the production lin and fold round shapes and
+    unweighted, each at every pending length 0 ... 11, then over a chain of
+    34 launches (a step's 14 factored and 3 reconstruction lin rounds, then
+    17 fold rounds) against the twin's chain; perm16_chain against its twin.
+    Each shape timed by a CUDA graph beside its bound and the chain of its
+    permutations alone.  Returns round_tail's record (the fold round)."""
+    from latticeum_tpu_torch.crypto import challenger
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    rng = np.random.default_rng(13)
+    deg_l, npts_h = prover.ccs.d + 1, 2 * prover.params.B_SMALL
+    lags = {"lin": gl.from_int([accel_rounds._lagrange_ext_consts(
+                deg_l, deg_l + 1)], dev),
+            "fold": gl.from_int(accel_rounds.fold_lagrange(
+                npts_h, npts_h + 1), dev),
+            "unweighted": None}
+    n_msgs = {"lin": deg_l + 1, "fold": npts_h + 1, "unweighted": deg_l + 1}
+
+    def rnd(*shape):
+        return torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, shape, dtype=np.uint64))).to(dev)
+
+    def case(kind, b, nv):
+        lag, n_msg = lags[kind], n_msgs[kind]
+        tables = 0 if lag is None else lag.shape[0]
+        rows = n_msg if lag is None else lag.shape[2]
+        z = lambda *s: torch.zeros(s, dtype=gl.DTYPE, device=dev)  # noqa: E731
+        return {"sums": rnd(rows, 24), "lag": lag,
+                "points": rnd(tables, nv, 3) if tables else None,
+                "E": rnd(tables, 3) if tables else None, "state": rnd(16),
+                "pend": rnd(b), "msgs": z(nv, n_msg, 24), "chals": z(nv, 3)}
+
+    def tail(x, r):
+        challenger.round_tail(x["sums"], x["lag"], x["points"], x["E"],
+                              x["state"], x["pend"], x["msgs"], x["chals"],
+                              r, weighted=x["lag"] is not None)
+
+    def copy(x, d):
+        return {k: None if v is None else v.to(d).clone()
+                for k, v in x.items()}
+
+    def err(a, b, keys):
+        return max(u64_err(gl, np, a[k].cpu(), b[k])
+                   for k in keys if a[k] is not None)
+
+    worst = 0
+    out_keys = ("msgs", "chals", "state", "E")
+    for kind in lags:
+        for b in range(12):
+            x = case(kind, b, 4)
+            got, want = copy(x, dev), copy(x, "cpu")
+            tail(got, 2)
+            tail(want, 2)
+            torch.cuda.synchronize()
+            e = err(got, want, out_keys)
+            worst = max(worst, e)
+            if e:
+                fail(f"round_tail {kind}, {b} pending: max_abs_err={e}")
+        log(f"round_tail {kind} (n_msg {n_msgs[kind]}): bit-exact with the "
+            "twin at every pending length 0 ... 11")
+
+    # a step's chain: 14 + 3 lin rounds, then 17 fold rounds
+    lin_x, rec_x, fold_x = case("lin", 5, 17), case("unweighted", 0, 17), \
+        case("fold", 0, 17)
+    sums = {k: rnd(17, *x["sums"].shape) for k, x in
+            (("lin", lin_x), ("unweighted", rec_x), ("fold", fold_x))}
+
+    def chain(d):
+        lx, fx = copy(lin_x, d), copy(fold_x, d)
+        st = lx["state"]
+        for r in range(17):
+            kind = "lin" if r < 14 else "unweighted"
+            x = dict(lx, sums=sums[kind][r].to(d),
+                     pend=lx["pend"] if r == 0 else lx["chals"][r - 1])
+            if kind == "unweighted":
+                x.update(lag=None, points=None, E=None)
+            tail(x, r)
+        for r in range(17):
+            tail(dict(fx, state=st, sums=sums["fold"][r].to(d),
+                      pend=lx["chals"][16] if r == 0 else fx["chals"][r - 1]),
+                 r)
+        return lx, fx
+    got, want = chain(dev), chain("cpu")
+    torch.cuda.synchronize()
+    e = max(err(got[0], want[0], out_keys), err(got[1], want[1], out_keys))
+    worst = max(worst, e)
+    if e:
+        fail(f"round_tail chain of 34 launches: max_abs_err={e}")
+    log("round_tail: a chain of 34 launches (14 lin, 3 unweighted, 17 fold "
+        "rounds) bit-exact with the twin's chain")
+    u = rnd(16)
+    for n in (1, 13):
+        if not torch.equal(challenger.perm16_chain(u, n).cpu(),
+                           challenger.perm16_chain_twin(u.cpu(), n)):
+            fail(f"perm16_chain n={n} differs from its twin")
+    log("perm16_chain n=1, 13: bit-exact with the twin")
+
+    rec = None
+    for kind in ("fold", "lin", "unweighted"):
+        b = 3                                   # rounds after the first
+        x = case(kind, b, 4)
+        n_msg = n_msgs[kind]
+        perms = challenger.permutations(b + 24 * n_msg)
+        ms = graph_ms(torch, lambda: tail(x, 2), 50)
+        st = rnd(16)
+        floor = graph_ms(torch, lambda: challenger.perm16_chain(st, perms),
+                         50)
+        y = copy(x, dev)
+        _, plain_ms = timed_once(torch, lambda: challenger.round_tail_twin(
+            y["sums"], y["lag"], None if y["points"] is None
+            else y["points"][:, 2], y["E"], y["state"], y["pend"],
+            y["lag"] is not None))
+        tables = 0 if x["lag"] is None else x["lag"].shape[0]
+        nbytes = 8 * (x["sums"].numel() + (0 if x["lag"] is None else
+                                           x["lag"].numel())
+                      + 3 * tables * 3 + 2 * 16 + b + 24 * n_msg + 3 + 166)
+        work = {c: perm16_sass[c] * perms for c in CLASSES}
+        b_ms = bound(rate, nbytes, work)[0]
+        log(f"round_tail {kind} (L = {b + 24 * n_msg}, {perms} "
+            f"permutations): {ms:.4f} ms (CUDA graph of 50); the chain of "
+            f"its {perms} permutations alone {floor:.4f} ms (the latency "
+            f"floor of the design); bound {b_ms:.6f} ms, {100 * b_ms / ms:.3f}"
+            f" % of it; twin {plain_ms:.3f} ms (one call)")
+        if kind == "fold":
+            rec = record("round_tail", CH_SOURCE, worst, ms, plain_ms, rate,
+                         nbytes, work)
+    return [rec]
 
 
 def small_reference(torch, dev, general):
@@ -1203,20 +1375,72 @@ def stale_lin_betas():
     """Replay the JAX package's device lin sum-check as its TPU run computed
     it: its truncated-MLE reconstruction rounds use the betas of the first
     lin call in the process, which accel_dev_fs.run_fixed_phase_dev bakes
-    into a jit keyed by shape only (ROADMAP C.h9)."""
+    into a jit keyed by shape only (ROADMAP C.h9).  The port's chained
+    runner takes the reconstruction rounds' betas as an argument: the
+    first call's are handed to every later call."""
     from latticeum_tpu_torch.zkvm import accel_rounds
-    exact = accel_rounds._lin_reconstruct
+    exact = accel_rounds.run_lin_rounds_factored
     first = []
 
-    def stale(transcript, stack, nv, r, degree, sets, beta_s, chals):
+    def stale(transcript, g_t, nv, degree, sets, beta_s, log=None):
         if not first:
             first.append(list(beta_s))
-        return exact(transcript, stack, nv, r, degree, sets, first[0], chals)
-    accel_rounds._lin_reconstruct = stale
+        return exact(transcript, g_t, nv, degree, sets, beta_s,
+                     recon_betas=first[0], log=log)
+    accel_rounds.run_lin_rounds_factored = stale
     try:
         yield
     finally:
-        accel_rounds._lin_reconstruct = exact
+        accel_rounds.run_lin_rounds_factored = exact
+
+
+@contextlib.contextmanager
+def one_fetch_per_sumcheck(torch):
+    """Watch every chained sum-check (both runners of zkvm/accel_rounds.py):
+    it must copy from the device to the host exactly once (accel_rounds.
+    fetches), and with torch.cuda.set_sync_debug_mode("error") around it
+    no other synchronizing CUDA call may happen.  Yields {"lin": calls,
+    "fold": calls}; fails at the first fault."""
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    seen = {"lin": 0, "fold": 0}
+    real = {k: getattr(accel_rounds, k) for k in (
+        "run_lin_rounds_factored", "run_fold_rounds_factored", "_fetch")}
+
+    def fetch(*tensors):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real["_fetch"](*tensors)
+        finally:
+            torch.cuda.set_sync_debug_mode(2)
+
+    def watch(kind, run):
+        def watched(*args, **kwargs):
+            seen[kind] += 1
+            before = accel_rounds.fetches
+            torch.cuda.set_sync_debug_mode(2)
+            try:
+                out = run(*args, **kwargs)
+            except RuntimeError as e:
+                if "synchronizing" not in str(e):
+                    raise
+                fail(f"{kind} sum-check {seen[kind]} synchronized: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            n = accel_rounds.fetches - before
+            if n != 1:
+                fail(f"{kind} sum-check {seen[kind]}: {n} fetches")
+            return out
+        return watched
+    accel_rounds.run_lin_rounds_factored = watch(
+        "lin", real["run_lin_rounds_factored"])
+    accel_rounds.run_fold_rounds_factored = watch(
+        "fold", real["run_fold_rounds_factored"])
+    accel_rounds._fetch = fetch
+    try:
+        yield seen
+    finally:
+        for k, v in real.items():
+            setattr(accel_rounds, k, v)
 
 
 def record_folds(prover):

@@ -225,9 +225,10 @@ template <int NPTS>
 __global__ void __launch_bounds__(BLOCK)
     fold_roundr_kernel(const u64 *__restrict__ X, u64 *__restrict__ F,
                        const u64 *__restrict__ Tb, const u64 *__restrict__ mu,
-                       u64 *__restrict__ partial, int rows, long long q, Fq3 r,
-                       int b_small) {
-  fold_body<NPTS, true>(X, F, Tb, mu, partial, rows, q, r, b_small);
+                       u64 *__restrict__ partial, int rows, long long q,
+                       const u64 *__restrict__ r3, int b_small) {
+  fold_body<NPTS, true>(X, F, Tb, mu, partial, rows, q,
+                        Fq3{r3[0], r3[1], r3[2]}, b_small);
 }
 
 template <int NPTS>
@@ -248,9 +249,10 @@ __global__ void __launch_bounds__(BLOCK)
                       const int *__restrict__ set_off,
                       const int *__restrict__ set_idx,
                       const int *__restrict__ set_sign, int nsets,
-                      u64 *__restrict__ partial, long long q, Fq3 r) {
+                      u64 *__restrict__ partial, long long q,
+                      const u64 *__restrict__ r3) {
   lin_body<NPTS, true>(X, F, Tc, set_off, set_idx, set_sign, nsets, partial,
-                       q, r);
+                       q, Fq3{r3[0], r3[1], r3[2]});
 }
 
 // Second pass: out[k] = sum over blocks of partial[b][k], k < nvals.
@@ -321,14 +323,13 @@ int lt_fold_round0(const u64 *X, const u64 *Tb, const u64 *mu, u64 *partial,
 }
 
 int lt_fold_roundr(const u64 *X, u64 *F, const u64 *Tb, const u64 *mu,
-                   u64 *partial, u64 *out, int rows, long long q, u64 r0,
-                   u64 r1, u64 r2, int b_small, cudaStream_t stream) {
+                   u64 *partial, u64 *out, int rows, long long q,
+                   const u64 *r3, int b_small, cudaStream_t stream) {
   const int npts = 2 * b_small;
-  const Fq3 r = Fq3{r0, r1, r2};
 #define LT_CASE(N)                                                           \
   case N:                                                                    \
     fold_roundr_kernel<N><<<comb_grid(q), BLOCK, 0, stream>>>(               \
-        X, F, Tb, mu, partial, rows, q, r, b_small);                         \
+        X, F, Tb, mu, partial, rows, q, r3, b_small);                        \
     break;
   LT_DISPATCH_FOLD(npts, LT_CASE)
 #undef LT_CASE
@@ -355,13 +356,12 @@ int lt_lin_round0(const u64 *X, const u64 *Tc, const int *set_off,
 
 int lt_lin_roundr(const u64 *X, u64 *F, const u64 *Tc, const int *set_off,
                   const int *set_idx, const int *set_sign, int nsets,
-                  u64 *partial, u64 *out, long long q, u64 r0, u64 r1, u64 r2,
+                  u64 *partial, u64 *out, long long q, const u64 *r3,
                   int npts, cudaStream_t stream) {
-  const Fq3 r = Fq3{r0, r1, r2};
 #define LT_CASE(N)                                                           \
   case N:                                                                    \
     lin_roundr_kernel<N><<<comb_grid(q), BLOCK, 0, stream>>>(                \
-        X, F, Tc, set_off, set_idx, set_sign, nsets, partial, q, r);         \
+        X, F, Tc, set_off, set_idx, set_sign, nsets, partial, q, r3);        \
     break;
   LT_DISPATCH_LIN(npts, LT_CASE)
 #undef LT_CASE

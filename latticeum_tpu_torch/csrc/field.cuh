@@ -49,6 +49,14 @@ __device__ __forceinline__ u64 gl_mul_w(u64 a) {
   return gl_reduce128(a << 40, a >> 24);
 }
 
+// x^7, the Poseidon2 s-box: x^2, x^4, x^6, x^7.
+__device__ __forceinline__ u64 gl_pow7(u64 x) {
+  const u64 x2 = gl_mul(x, x);
+  const u64 x4 = gl_mul(x2, x2);
+  const u64 x6 = gl_mul(x4, x2);
+  return gl_mul(x6, x);
+}
+
 struct Fq3 {
   u64 c0, c1, c2;
 };

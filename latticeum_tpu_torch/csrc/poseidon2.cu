@@ -99,13 +99,6 @@ using namespace lt;
 
 namespace {
 
-__device__ __forceinline__ u64 sbox7(u64 x) {
-  const u64 x2 = gl_mul(x, x);
-  const u64 x4 = gl_mul(x2, x2);
-  const u64 x6 = gl_mul(x4, x2);
-  return gl_mul(x6, x);
-}
-
 // M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]] on s[o..o+3] (the addition
 // chain of Plonky3's apply_mat4: 9 additions and 2 doublings).
 template <int N>
@@ -175,7 +168,7 @@ __device__ __forceinline__ void external_round(u64 (&s)[8 / S],
                                                int lane) {
 #pragma unroll
   for (int j = 0; j < 8 / S; ++j)
-    s[j] = sbox7(gl_add(s[j], rc[g * (8 / S) + j]));
+    s[j] = gl_pow7(gl_add(s[j], rc[g * (8 / S) + j]));
   mds_light8<S>(s, lane);
 }
 
@@ -202,7 +195,7 @@ __device__ __forceinline__ void permute(u64 (&s)[8 / S], const u64 *k,
     external_round<S>(s, k + P8_EXT_INIT + 8 * r, g, lane);
   P8_ROUNDS
   for (int r = 0; r < 22; ++r) {
-    if (g == 0) s[0] = sbox7(gl_add(s[0], k[P8_INTERNAL + r]));
+    if (g == 0) s[0] = gl_pow7(gl_add(s[0], k[P8_INTERNAL + r]));
     u64 tot = s[0];
 #pragma unroll
     for (int j = 1; j < E; ++j) tot = gl_add(tot, s[j]);

@@ -22,6 +22,11 @@ def const(c, device=None):
     return tuple(gl.const(int(x), device) for x in c)
 
 
+def of(x):
+    """(..., 3) tensor -> the triple of its component views (...)."""
+    return (x[..., 0], x[..., 1], x[..., 2])
+
+
 def mul(a, b):
     """Karatsuba product: 6 base multiplies, W-multiplies as shifts."""
     a0, a1, a2 = a

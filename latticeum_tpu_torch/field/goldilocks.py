@@ -57,6 +57,14 @@ def from_limbs(limbs, device=None):
     return torch.from_numpy(to_i64_bits(lo | (hi << np.uint64(32)))).to(device)
 
 
+def upload(t, device):
+    """A host tensor onto `device`; on a card, from pinned memory and
+    without waiting for the work already queued there."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def to_limbs(x):
     """int64 tensor -> (lo, hi) uint32 numpy limb pair."""
     u = x.detach().cpu().contiguous().numpy().view(np.uint64)

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu")
+SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -98,18 +98,18 @@ def lib():
     if _lib is not None:
         return _lib
     so = ctypes.CDLL(str(build()))
-    vp, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_uint64)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "lt_fold_round0": [vp] * 5 + [i32, i64, i32, vp],
-        "lt_fold_roundr": [vp] * 6 + [i32, i64, u64, u64, u64, i32, vp],
+        "lt_fold_roundr": [vp] * 6 + [i32, i64, vp, i32, vp],
         "lt_lin_round0": [vp] * 5 + [i32, vp, vp, i64, i32, vp],
-        "lt_lin_roundr": [vp] * 6 + [i32, vp, vp, i64, u64, u64, u64, i32,
-                                     vp],
+        "lt_lin_roundr": [vp] * 6 + [i32, vp, vp, i64, vp, i32, vp],
         "lt_perm8": [vp] * 3 + [i64, i32, vp],
         "lt_sponge8": [vp] * 3 + [i64, i64, i32, vp],
         "lt_digit_split": [vp] * 2 + [i32] * 2 + [i64] + [i32] * 5 + [vp],
         "lt_plane_recombine": [vp] * 2 + [i64] * 4 + [vp],
+        "lt_round_tail": [vp] * 9 + [i32] * 7 + [vp],
+        "lt_perm16_chain": [vp] * 2 + [i32, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)

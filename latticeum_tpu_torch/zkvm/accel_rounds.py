@@ -1,21 +1,34 @@
-"""Eq-factored (Gruen) sum-check rounds with the host transcript.
+"""Eq-factored (Gruen) sum-check rounds chained on the device, Fiat-Shamir
+challenger included.
 
-Counterpart of ``latticeum_tpu/zkvm/accel_rounds.py``:
-``run_lin_rounds_factored`` (:516) and ``run_fold_rounds_factored`` (:909)
-with the host Fiat-Shamir transcript, one round at a time (the reference's
-``LATTICEUM_CHAIN=0`` math).  Round messages are bit-identical to the host
-path ``nifs/*.prove``: the eq table never enters the comb, each round's comb
-is evaluated at deg+1 points by a comb kernel (``comb.py``), and the host
-extends the sums to the message points and applies the E * eqf(beta_r, t)
-weights with exact integers.
+Counterpart of ``latticeum_tpu/zkvm/accel_rounds.py`` on its default path,
+the device chain (``_chain_enabled``, :65-73): ``run_lin_rounds_factored``
+(:688-835) and ``run_fold_rounds_factored`` (:1106-1300), with the
+truncated lin stack's reconstruction rounds of
+``accel_dev_fs.run_fixed_phase_dev`` (:314-345).  Every round of a
+sum-check is enqueued on the device: the round's comb kernel (``comb.py``),
+then ``challenger.round_tail``, which extends and weights the sums into the
+round message, runs the duplex challenger over it and writes the
+challenge, which the next round's comb kernel reads from device memory.
+Nothing comes back to the host until the sum-check ends; then ONE copy
+brings the messages, the challenges, the final evaluations and the
+challenger state, and the host transcript takes them up: its absorptions,
+its recorded samples (which the collector's ``ReplayTranscript`` replays)
+and its challenger (``_chain_bookkeep``, :492-513, and
+``accel_dev_fs.finish_fixed_phase_host``, :372-416).  ``fetches`` counts
+those copies.  Every value the chain needs from the host (the exported
+challenger, the betas and eq points, the Lagrange rows, the reconstruction
+eq table) is uploaded before its first round.
 
-Shrink rounds run until the arrays are one column wide; there is no
-fixed-width phase.  When the lin stack is truncated (its width below
-2^nv, ROADMAP C.h5), the remaining variables are finished by unfactored
-rounds over a rebuilt eq table, exactly as the reference's truncated-MLE
-reconstruction (``accel_rounds.py:240-276``); those rounds are tiny and stay
-plain torch.  The host-side helpers (Lagrange extension, eqf weights, the
-transcript round, the reversed eq table) are copies of the reference's own.
+Messages and challenges are bit-identical to the host path ``nifs/*.prove``
+(host sum-check, host transcript).  Shrink rounds run until the arrays are
+one column wide; there is no fixed-width phase.  When the lin stack is
+truncated (its width below 2^nv, ROADMAP C.h5), the remaining variables
+are finished by unfactored rounds over an eq table rebuilt from this call's
+betas, scaled by prod eqf(beta_j, r_j) over the device challenges; the
+betas are arguments of every call, never kept from an earlier one (the
+fault of the JAX package's device path, ROADMAP C.h9).  Those rounds are
+tiny and stay plain torch up to their round tail.
 
 All arrays are t-layout (rows, 24, n) with a bit-reversed hypercube, so a
 round pairs the two contiguous halves.
@@ -26,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
 from ..host import backend as B
 from ..host.field import host as H
@@ -35,9 +49,10 @@ from ..ring import rq
 from . import comb
 
 P = gl.P
+fetches = 0          # device -> host copies made by the sum-checks
 
 
-# -- host-side Fq3 / extension helpers --------------------------------------
+# -- host-side constants ------------------------------------------------------
 
 # copied from latticeum_tpu/zkvm/accel_fs.py:177
 def _lagrange_ext_consts(npts: int, n_targets: int):
@@ -56,64 +71,19 @@ def _lagrange_ext_consts(npts: int, n_targets: int):
     return M
 
 
-# copied from latticeum_tpu/zkvm/accel_rounds.py:78
-def _eqf_host(b, t):
-    """eqf(b, t) = (1-b)(1-t) + b*t at integer point t, b an Fq3 triple."""
-    return tuple((x * (2 * t - 1) + ((1 - t) if j == 0 else 0)) % P
-                 for j, x in enumerate(b))
-
-
-# copied from latticeum_tpu/zkvm/accel_rounds.py:84
-def _eqf_at(b, r):
-    """eqf(b, r) = 1 - b - r + 2br for Fq3 b, r."""
-    br = H.fq3_mul(b, r)
-    return H.fq3_sub(H.fq3_add(H.fq3_add(br, br), (1, 0, 0)),
-                     H.fq3_add(b, r))
-
-
-# copied from latticeum_tpu/zkvm/accel_rounds.py:108
-def _extend_host(S_pts, ext):
-    """S_pts: [pt][slot] Fq3 triples at points 0..npts-1; ext: (n_msg, npts)
-    object-int Lagrange matrix -> [t][slot] triples at points 0..n_msg-1."""
-    npts = len(S_pts)
-    n_msg = ext.shape[0]
-    out = []
-    for t in range(n_msg):
-        row = []
-        for sl in range(8):
-            acc = [0, 0, 0]
-            for j in range(npts):
-                w = int(ext[t, j])
-                v = S_pts[j][sl]
-                for c in range(3):
-                    acc[c] = (acc[c] + w * v[c]) % P
-            row.append(tuple(acc))
-        out.append(row)
-    return out
-
-
-# copied from latticeum_tpu/zkvm/accel_rounds.py:128
-def _weighted_msg(terms, n_msg):
-    """terms: list of (per-point Fq3 weight list, S_ext [t][slot]) -> round
-    message rows [t] = 24 slot-major ints (sum_tbl w_tbl(t) * S_tbl(t))."""
-    msg = []
-    for t in range(n_msg):
-        slots = [(0, 0, 0)] * 8
-        for w_t, S_ext in terms:
-            w = w_t[t]
-            row = S_ext[t]
-            slots = [H.fq3_add(slots[sl], H.fq3_mul(w, row[sl]))
-                     for sl in range(8)]
-        msg.append([int(v) for sl in slots for v in sl])
-    return msg
-
-
-# copied from latticeum_tpu/zkvm/accel_rounds.py:150
-def _transcript_round(transcript, msg):
-    transcript.absorb_slice(msg)
-    c = transcript.get_challenge()
-    transcript.absorb_fq3(c)
-    return c
+def fold_lagrange(npts_h, n_msg):
+    """(3, n_msg, npts_h + 4) Lagrange rows over the fold's round sums
+    [h at 0 .. npts_h - 1, c1 at 0, c2 at 0, c1 at 1, c2 at 1] (the layout
+    of the JAX package's ``_make_weight_fold``): tables r1 and r2 extend
+    their linear c term from {0, 1}, table beta the h sums."""
+    ext_h = _lagrange_ext_consts(npts_h, n_msg)
+    ext_c = _lagrange_ext_consts(2, n_msg)
+    lag = np.zeros((3, n_msg, npts_h + 4), dtype=object)
+    for tbl in range(2):
+        lag[tbl, :, npts_h + tbl] = ext_c[:, 0]
+        lag[tbl, :, npts_h + 2 + tbl] = ext_c[:, 1]
+    lag[2, :, :npts_h] = ext_h
+    return lag
 
 
 # copied from latticeum_tpu/zkvm/accel_t.py:33
@@ -135,10 +105,58 @@ def build_eq_table_rev(r_fq3_list, max_rows=None):
     return cur
 
 
-def _rows_to_pts(S):
-    """(npts, 24) sums tensor -> [pt][slot] Fq3 int triples."""
-    v = gl.to_int_lists(S)
-    return [[tuple(row[3 * s:3 * s + 3]) for s in range(8)] for row in v]
+def mu_powers(mu_s, K, TAU=3):
+    """mu_k^{d+1}, k-major (row k*TAU + d) -> host list of Fq3 triples."""
+    out = []
+    for k in range(2 * K):
+        p = (1, 0, 0)
+        for _d in range(TAU):
+            p = H.fq3_mul(p, tuple(int(x) % P for x in mu_s[k]))
+            out.append(p)
+    return out
+
+
+# -- the host boundary of a chained sum-check ---------------------------------
+
+def _ints(values, device):
+    return gl.upload(gl.from_int(values), device)
+
+
+def _export(transcript, device):
+    """The host challenger's state (16,) and pending input (b <= 11,) on
+    `device`.  Valid at a sum-check's start, where an observe comes next."""
+    state, pending = transcript.export_for_device()
+    return _ints(state, device), _ints(pending, device)
+
+
+def _pending(pend0, chals, r):
+    """What round r observes first: the exported input at round 0, the
+    previous challenge after it."""
+    return pend0 if r == 0 else chals[r - 1]
+
+
+def _fetch(*tensors):
+    """One device -> host copy of all `tensors`, counted in `fetches`."""
+    global fetches
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+    fetches += 1
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.reshape(t.shape) for p, t in zip(parts, tensors)]
+
+
+def _take_up(transcript, msgs, chals, state):
+    """The host transcript takes up a fetched sum-check: each round's
+    message joins its absorptions and each challenge its recorded samples;
+    its challenger gets the final state, the last challenge pending.
+    Returns (proof rows, challenges) as host ints."""
+    proof = gl.to_int_lists(msgs)
+    out = [tuple(c) for c in gl.to_int_lists(chals)]
+    for msg, c in zip(proof, out):
+        transcript.absorptions.append([list(row) for row in msg])
+        if transcript.samples is not None:
+            transcript.samples.extend(c)
+    transcript.import_from_device(gl.to_int_lists(state), list(out[-1]))
+    return proof, out
 
 
 def _pair_sum(x):
@@ -151,27 +169,41 @@ def _contract(a, b):
     return gl.sum_axis(rq.ntt_mul_t(a, b), -1)
 
 
-# -- linearization --------------------------------------------------------------
+# -- linearization ------------------------------------------------------------
 
-def _lin_reconstruct(transcript, stack, nv, r, degree, sets, beta_s, chals):
-    """Unfactored rounds r..nv-1 over a truncated stack that is one column
-    wide: Mz finals at column 0 of a 2^(nv-r) wide table, the eq row
-    rebuilt for the remaining variables and scaled by prod eqf(beta_j, r_j).
-    Returns (proof, chals, final rows)."""
-    dev = stack.device
-    t_rows = stack.shape[0] - 1
-    rest = 1 << (nv - r)
-    scale = (1, 0, 0)
-    for rj, bj in zip(chals, beta_s):
-        scale = H.fq3_mul(scale, _eqf_at(bj, rj))
-    tab = build_eq_table_rev(beta_s[r:])                  # (rest, 24) limbs
-    tab_t = rq.ntt_scalar_mul_t(gl.from_limbs(tab, dev).T.contiguous(),
-                                fq3.const(scale, dev))
-    cur = torch.zeros((t_rows + 1, 24, rest), dtype=gl.DTYPE, device=dev)
-    cur[:, :, 0] = stack[:, :, 0]
-    cur[t_rows] = tab_t
-    groups = comb.lin_groups(sets, dev)
-    proof, out = [], []
+def _factored_rounds(n0, nv):
+    """Rounds of the lin stack before it is one column wide: round 0 pairs
+    the n0 columns, each later round folds first (comb.lin_roundr)."""
+    r, width = 0, n0
+    while r < nv and (width // 2 if r else width) >= 2:
+        width //= 2 if r else 1
+        r += 1
+    return r
+
+
+def _eqf_product(betas, chals):
+    """prod_j eqf(beta_j, r_j) over (k, 3) device tensors -> Fq3 triple."""
+    e = challenger.eqf_at(fq3.of(betas), fq3.of(chals))
+    zero = torch.zeros((), dtype=gl.DTYPE, device=betas.device)
+    out = (zero + 1, zero, zero)
+    for j in range(betas.shape[0]):
+        out = fq3.mul(out, tuple(c[j] for c in e))
+    return out
+
+
+def _lin_reconstruct(mz, nv, r, degree, sets, tab, scale, state, pend0,
+                     msgs, chals):
+    """Unfactored rounds r..nv-1 after the truncated Mz rows are one
+    column wide (mz (t, 24, 1)): their finals at column 0 of a 2^(nv-r)
+    wide table, and the eq row `tab` (2^(nv-r), 24), the eq table of the
+    remaining betas, scaled by `scale` = prod eqf(beta_j, r_j) over the
+    rounds before.  Each round's message is its plain sums at degree+1
+    points.  Returns the final rows [Mz..., eq]."""
+    t_rows = mz.shape[0]
+    cur = torch.zeros((t_rows + 1, 24, tab.shape[0]), dtype=gl.DTYPE,
+                      device=mz.device)
+    cur[:t_rows, :, 0] = mz[:, :, 0]
+    cur[t_rows] = rq.ntt_scalar_mul_t(tab.T.contiguous(), scale)
     while r < nv:
         half = cur.shape[-1] // 2
         v0, v1 = cur[..., :half], cur[..., half:]
@@ -180,89 +212,91 @@ def _lin_reconstruct(transcript, stack, nv, r, degree, sets, beta_s, chals):
         for _t in range(degree):
             pts.append(gl.add(pts[-1], step))
         f = rq._as_slots_t(torch.stack(pts, dim=1))   # (rows, deg+1, 8, half)
-        q = comb.signed_multiset_sum(tuple(c[:t_rows] for c in f), groups)
+        q = comb.signed_multiset_sum(tuple(c[:t_rows] for c in f),
+                                     sets.groups)
         g = fq3.mul(q, tuple(c[t_rows] for c in f))
-        msg = gl.to_int_lists(torch.stack(
-            [gl.sum_axis(c, -1) for c in g], dim=-1).reshape(-1, 24))
-        c = _transcript_round(transcript, msg)
-        proof.append(msg)
-        out.append(c)
-        cur = gl.add(v0, rq.ntt_scalar_mul_t(step, fq3.const(c, dev)))
+        msg = torch.stack([gl.sum_axis(c, -1) for c in g],
+                          dim=-1).reshape(-1, 24)
+        challenger.round_tail(msg, None, None, None, state,
+                              _pending(pend0, chals, r), msgs, chals, r,
+                              weighted=False)
+        cur = gl.add(v0, rq.ntt_scalar_mul_t(step, fq3.of(chals[r])))
         r += 1
-    return proof, out, cur[..., 0]
+    return cur[..., 0]
 
 
 def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
-                            log=None):
-    """Eq-factored linearization sum-check.
+                            recon_betas=None, log=None):
+    """Eq-factored linearization sum-check, chained on the device.
 
     g_t: (t+1, 24, n0) t-layout stack, eq row last (n0 <= 2^nv, a power of
-    two); sets: the multisets with their +-1 signs (comb.lin_sets).  Each
-    round folds the previous challenge into the Mz rows and evaluates
-    q = sum_i c_i prod Mz_j at deg(q)+1 = degree points, weighted by the
-    pair-summed eq table (lin_round0 / lin_roundr); the eq table advances
-    by pair sums only.  Returns (proof, chals, final) with final rows in
-    [Mz..., eq] order, (t+1, 24)."""
+    two); sets: the multisets with their +-1 signs (comb.lin_sets); beta_s:
+    this proof's betas.  Each round folds the previous challenge into the
+    Mz rows and evaluates q = sum_i c_i prod Mz_j at deg(q)+1 = degree
+    points, weighted by the pair-summed eq table (lin_round0 / lin_roundr);
+    the round tail extends them to the degree+1 message points and weights
+    them by E * eqf(beta_r, t); the eq table advances by pair sums only.
+    A truncated stack finishes with the reconstruction rounds over the eq
+    table of `recon_betas` (beta_s unless given: chip_smoke.py replays the
+    JAX package's stale betas, ROADMAP C.h9, through it).  Returns (proof,
+    chals, final): host ints, and the final rows [Mz..., eq] as a
+    (t+1, 24) host tensor."""
     dev = g_t.device
     t_rows = g_t.shape[0] - 1
     n0 = g_t.shape[-1]
     npts_q, n_msg = degree, degree + 1
-    ext_q = _lagrange_ext_consts(npts_q, n_msg)
+    n_fact = _factored_rounds(n0, nv)
     transcript.absorb_u64(nv)
     transcript.absorb_u64(degree)
+    state, pend0 = _export(transcript, dev)
+    lag = _ints([_lagrange_ext_consts(npts_q, n_msg)], dev)
+    betas = _ints([[list(b) for b in beta_s]], dev)          # (1, nv, 3)
+    E = _ints([[1, 0, 0]], dev)
+    if n_fact < nv:
+        own = recon_betas is None
+        recon = beta_s if own else recon_betas
+        tab = gl.upload(gl.from_limbs(build_eq_table_rev(recon[n_fact:])),
+                        dev)
+        if not own:
+            recon_d = _ints([list(b) for b in recon[:n_fact]], dev)
+    msgs = torch.zeros((nv, n_msg, 24), dtype=gl.DTYPE, device=dev)
+    chals = torch.zeros((nv, 3), dtype=gl.DTYPE, device=dev)
 
     mz, eq = g_t[:t_rows], g_t[t_rows]
-    E = (1, 0, 0)
-    proof, chals = [], []
-    r = 0
-    while r < nv and (mz.shape[-1] // 2 if r else mz.shape[-1]) >= 2:
+    for r in range(n_fact):
         Tc = _pair_sum(eq).contiguous()
         if r == 0:
             Sq = comb.lin_round0(mz.contiguous(), Tc, sets, npts_q)
         else:
-            Sq, mz = comb.lin_roundr(mz, Tc, chals[-1], sets, npts_q)
-        S_ext = _extend_host(_rows_to_pts(Sq), ext_q)
-        w_t = [H.fq3_mul(E, _eqf_host(beta_s[r], t)) for t in range(n_msg)]
-        msg = _weighted_msg([(w_t, S_ext)], n_msg)
-        c = _transcript_round(transcript, msg)
-        proof.append(msg)
-        chals.append(c)
-        E = H.fq3_mul(E, _eqf_at(beta_s[r], c))
+            Sq, mz = comb.lin_roundr(mz, Tc, chals[r - 1], sets, npts_q)
+        challenger.round_tail(Sq, lag, betas, E, state,
+                              _pending(pend0, chals, r), msgs, chals, r)
         eq = Tc
-        r += 1
-    if r:
-        mz = comb.fold_t(mz, chals[-1])
-    # the unfactored eq row equals E * T (T the carried pair-sum table)
-    eqr = rq.ntt_scalar_mul_t(eq, fq3.const(E, dev))
-    stack = torch.cat([mz, eqr[None]])
-    if r < nv:
-        tp, tc, final = _lin_reconstruct(transcript, stack, nv, r, degree,
-                                         sets, beta_s, chals)
-        proof.extend(tp)
-        chals.extend(tc)
+    if n_fact:
+        mz = comb.fold_t(mz, chals[n_fact - 1])
+    if n_fact < nv:
+        # E is prod_{j < n_fact} eqf(beta_j, r_j) already
+        scale = (fq3.of(E[0]) if own
+                 else _eqf_product(recon_d, chals[:n_fact]))
+        final = _lin_reconstruct(mz, nv, n_fact, degree, sets, tab, scale,
+                                 state, pend0, msgs, chals)
     else:
-        final = stack[..., 0]
+        # the unfactored eq row equals E * T (T the carried pair-sum table)
+        final = torch.cat([mz, rq.ntt_scalar_mul_t(eq, fq3.of(E[0]))[None]])
+        final = final[..., 0]
+    msgs, chals, final, state = _fetch(msgs, chals, final, state)
+    proof, out = _take_up(transcript, msgs, chals, state)
     if log:
-        log(f"      lin rounds: {r} factored + {nv - r} reconstruction (n0={n0})")
-    return proof, chals, final
+        log(f"      lin rounds: {n_fact} factored + {nv - n_fact} "
+            f"reconstruction (n0={n0}), one fetch")
+    return proof, out, final
 
 
-# -- folding --------------------------------------------------------------------
-
-def mu_powers(mu_s, K, TAU=3):
-    """mu_k^{d+1}, k-major (row k*TAU + d) -> host list of Fq3 triples."""
-    out = []
-    for k in range(2 * K):
-        p = (1, 0, 0)
-        for _d in range(TAU):
-            p = H.fq3_mul(p, tuple(int(x) % P for x in mu_s[k]))
-            out.append(p)
-    return out
-
+# -- folding ------------------------------------------------------------------
 
 def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
                              eq_points, b_small, K, TAU=3, log=None):
-    """Eq-factored folding sum-check.
+    """Eq-factored folding sum-check, chained on the device.
 
     head: (5, 24, n) rows [eq_r1, c1, eq_r2, c2, eq_beta]; tail: the
     (2K*TAU, 24, n) f_hat rows, n = 2^nv; eq_points = (r1, r2, beta) host Fq3
@@ -270,27 +304,30 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
     into the f_hat rows (fold_roundr) and the c rows, pair-sums the three eq
     tables, evaluates h at 2*b_small points over the tail (T_beta-weighted,
     fold_round0 / fold_roundr) and the two linear c terms at {0, 1}
-    (T_r-weighted).  Returns (proof, chals, final) with final rows in the
-    [eq1, c1, eq2, c2, eq_beta, f_hat...] order."""
+    (T_r-weighted); the round tail extends and weights the three tables'
+    sums into the message.  Returns (proof, chals, final): host ints, and
+    the final rows [eq1, c1, eq2, c2, eq_beta, f_hat...] as a host tensor."""
     dev = tail.device
     n0 = tail.shape[-1]
     if n0 != 1 << nv:
-        raise ValueError(f"fold sum-check needs full-width MLEs ({n0} != 2^{nv})")
+        raise ValueError(f"fold sum-check needs full-width MLEs "
+                         f"({n0} != 2^{nv})")
     npts_h, n_msg = 2 * b_small, degree + 1
-    ext_h = _lagrange_ext_consts(npts_h, n_msg)
-    ext_c = _lagrange_ext_consts(2, n_msg)
-    mu = gl.from_int([list(m) for m in mu_powers(mu_s, K, TAU)], dev)
     transcript.absorb_u64(nv)
     transcript.absorb_u64(degree)
+    state, pend0 = _export(transcript, dev)
+    lag = _ints(fold_lagrange(npts_h, n_msg), dev)
+    mu = _ints([list(m) for m in mu_powers(mu_s, K, TAU)], dev)
+    points = _ints([[list(p) for p in tbl] for tbl in eq_points], dev)
+    E = _ints([[1, 0, 0]] * 3, dev)
+    msgs = torch.zeros((nv, n_msg, 24), dtype=gl.DTYPE, device=dev)
+    chals = torch.zeros((nv, 3), dtype=gl.DTYPE, device=dev)
 
     t_s = tail.contiguous()
     c2r, eqs = head[1:4:2], head[0::2]
-    E = [(1, 0, 0)] * 3
-    proof, chals = [], []
-    r = 0
-    while r < nv:
+    for r in range(nv):
         if r:
-            c2r = comb.fold_t(c2r, chals[-1])
+            c2r = comb.fold_t(c2r, chals[r - 1])
         half = c2r.shape[-1] // 2
         Tn = _pair_sum(eqs)                                  # (3, 24, half)
         Sc0 = _contract(Tn[:2], c2r[..., :half])             # (2, 24)
@@ -299,30 +336,19 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
         if r == 0:
             Sh = comb.fold_round0(t_s, Tb, mu, b_small)
         else:
-            Sh, t_s = comb.fold_roundr(t_s, Tb, mu, chals[-1], b_small)
-        sc = _rows_to_pts(torch.cat([Sc0, Sc1]))             # [tbl0@0, tbl1@0, tbl0@1, tbl1@1]
-        terms = []
-        for tbl in range(2):
-            S_ext = _extend_host([sc[tbl], sc[2 + tbl]], ext_c)
-            w_t = [H.fq3_mul(E[tbl], _eqf_host(eq_points[tbl][r], t))
-                   for t in range(n_msg)]
-            terms.append((w_t, S_ext))
-        w_t = [H.fq3_mul(E[2], _eqf_host(eq_points[2][r], t))
-               for t in range(n_msg)]
-        terms.append((w_t, _extend_host(_rows_to_pts(Sh), ext_h)))
-        msg = _weighted_msg(terms, n_msg)
-        c = _transcript_round(transcript, msg)
-        proof.append(msg)
-        chals.append(c)
-        for tbl in range(3):
-            E[tbl] = H.fq3_mul(E[tbl], _eqf_at(eq_points[tbl][r], c))
+            Sh, t_s = comb.fold_roundr(t_s, Tb, mu, chals[r - 1], b_small)
+        challenger.round_tail(torch.cat([Sh, Sc0, Sc1]), lag, points, E,
+                              state, _pending(pend0, chals, r), msgs, chals,
+                              r)
         eqs = Tn
-        r += 1
-    t_s = comb.fold_t(t_s, chals[-1])
-    c2r = comb.fold_t(c2r, chals[-1])
-    eqr = [rq.ntt_scalar_mul_t(eqs[i], fq3.const(E[i], dev)) for i in range(3)]
+    last = chals[nv - 1]
+    t_s = comb.fold_t(t_s, last)
+    c2r = comb.fold_t(c2r, last)
+    eqr = [rq.ntt_scalar_mul_t(eqs[i], fq3.of(E[i])) for i in range(3)]
     head_f = torch.stack([eqr[0], c2r[0], eqr[1], c2r[1], eqr[2]])
     final = torch.cat([head_f, t_s])[..., 0]
+    msgs, chals, final, state = _fetch(msgs, chals, final, state)
+    proof, out = _take_up(transcript, msgs, chals, state)
     if log:
-        log(f"      fold rounds: {r} factored (n0={n0})")
-    return proof, chals, final
+        log(f"      fold rounds: {nv} factored (n0={n0}), one fetch")
+    return proof, out, final

@@ -15,7 +15,9 @@ minor axis, so a sum-check round pairs column x with column x + half.
   on honest digit witnesses, exactly as the reference skips them.
 * ``fold_roundr(X, Tb, mu, r3, b_small)``: X (rows, 24, 4q) is folded at
   the challenge r (F = X[.., :2q] + r (X[.., 2q:] - X[.., :2q])) into a
-  fresh F (rows, 24, 2q); returns (S over all points of F, F).
+  fresh F (rows, 24, 2q); returns (S over all points of F, F).  r3 is the
+  challenge as a (3,) tensor on X's device (a row of the sum-check's
+  challenges, which never leave the device), read by the kernel there.
 * ``lin_round0(X, Tc, sets, npts)``: S[t] = sum_x Tc(x) * sum_i sign_i
   prod_{j in S_i} f_t[j], t < npts, over X (rows, 24, 2q).
 * ``lin_roundr(X, Tc, r3, sets, npts)``: fold at r as above, then the lin
@@ -27,7 +29,6 @@ the kernel (and counts the launch) or raises.  There is no fallback.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -45,14 +46,16 @@ _TWIN_COLS = 8192    # column chunk of the twins (bounds their temporaries)
 
 @dataclass
 class LinSets:
-    """The lin comb's static multisets S_i and +-1 signs c_i, on the host
-    for the twin and as int32 device arrays (CSR offsets) for the kernel."""
+    """The lin comb's static multisets S_i and +-1 signs c_i: on the host,
+    as int32 device arrays (CSR offsets) for the kernel, and grouped by size
+    for the plain-torch products (``groups``, see ``lin_groups``)."""
     S: tuple
     signs: tuple
     rows: int
     off: torch.Tensor
     idx: torch.Tensor
     sgn: torch.Tensor
+    groups: list
 
 
 def lin_sets(S, signs, rows, device):
@@ -72,17 +75,18 @@ def lin_sets(S, signs, rows, device):
 
     def i32(v):
         return torch.tensor(v, dtype=torch.int32, device=device)
-    return LinSets(S, signs, rows, i32(off), i32(flat), i32(list(signs)))
+    return LinSets(S, signs, rows, i32(off), i32(flat), i32(list(signs)),
+                   lin_groups(S, signs, device))
 
 
 # -- shared pieces of the twins ----------------------------------------------
 
 def fold_t(X, r3):
-    """(..., 24, 2w) -> (..., 24, w): v0 + r (v1 - v0) on contiguous halves."""
+    """(..., 24, 2w) -> (..., 24, w): v0 + r (v1 - v0) on contiguous halves,
+    r3 the challenge as a (3,) tensor on X's device."""
     w = X.shape[-1] // 2
     v0, v1 = X[..., :w], X[..., w:]
-    return gl.add(v0, rq.ntt_scalar_mul_t(gl.sub(v1, v0),
-                                          fq3.const(r3, X.device)))
+    return gl.add(v0, rq.ntt_scalar_mul_t(gl.sub(v1, v0), fq3.of(r3)))
 
 
 def _slot_major(s3):
@@ -117,14 +121,14 @@ def _fold_sums_twin(X, Tb, mu, b_small, pt0):
     return S
 
 
-def lin_groups(sets, device):
+def lin_groups(S, signs, device):
     """The multisets grouped by size, one batched product chain per size:
     [(sign > 0 mask (g,), row ids (g, size))] as tensors on `device`."""
     groups = {}
-    for i, s in enumerate(sets.S):
+    for i, s in enumerate(S):
         groups.setdefault(len(s), []).append(i)
-    return [(torch.tensor([sets.signs[i] > 0 for i in ids], device=device),
-             torch.tensor([sets.S[i] for i in ids], device=device))
+    return [(torch.tensor([signs[i] > 0 for i in ids], device=device),
+             torch.tensor([S[i] for i in ids], device=device))
             for _, ids in sorted(groups.items())]
 
 
@@ -147,7 +151,7 @@ def _lin_sums_twin(X, Tc, sets, npts):
     rows, _, w = X.shape
     q = w // 2
     S = torch.zeros((npts, 24), dtype=gl.DTYPE, device=X.device)
-    groups = lin_groups(sets, X.device)
+    groups = sets.groups
     for c0 in range(0, q, _TWIN_COLS):
         c1 = min(q, c0 + _TWIN_COLS)
         f = rq._as_slots_t(X[..., c0:c1])                    # (rows, 8, c)
@@ -194,10 +198,6 @@ def _fold_check(X, Tb, mu, b_small, width_mult):
     return rows, q
 
 
-def _r3_args(r3):
-    return [ctypes.c_uint64(int(c) % gl.P) for c in r3]
-
-
 def fold_round0(X, Tb, mu, b_small):
     """Fold sum-check round 0 (replaces pallas_comb.fold_round0_pallas)."""
     rows, q = _fold_check(X, Tb, mu, b_small, 2)
@@ -217,7 +217,8 @@ def fold_roundr(X, Tb, mu, r3, b_small):
     """Fold sum-check round r >= 1, fold fused (replaces
     pallas_comb.fold_roundr_pallas)."""
     rows, q = _fold_check(X, Tb, mu, b_small, 4)
-    if _route((X, Tb, mu)) == "cpu":
+    _check("r3", r3, (3,))
+    if _route((X, Tb, mu, r3)) == "cpu":
         return fold_roundr_twin(X, Tb, mu, r3, b_small)
     npts = 2 * b_small
     nbx = -(-q // BLOCK)
@@ -225,8 +226,7 @@ def fold_roundr(X, Tb, mu, r3, b_small):
     partial = torch.empty((nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
     out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
     _launch("lt_fold_roundr", _ptr(X), _ptr(F), _ptr(Tb), _ptr(mu),
-            _ptr(partial), _ptr(out), rows, q, *_r3_args(r3), b_small,
-            _stream())
+            _ptr(partial), _ptr(out), rows, q, _ptr(r3), b_small, _stream())
     fold_roundr.launches += 1
     return out, F
 
@@ -267,14 +267,15 @@ def lin_roundr(X, Tc, r3, sets, npts):
     """Linearization round r >= 1, fold fused (replaces
     pallas_comb.lin_roundr_pallas)."""
     rows, q = _lin_check(X, Tc, sets, npts, 4)
-    if _route((X, Tc, sets.off)) == "cpu":
+    _check("r3", r3, (3,))
+    if _route((X, Tc, sets.off, r3)) == "cpu":
         return lin_roundr_twin(X, Tc, r3, sets, npts)
     nbx = -(-q // BLOCK)
     F = torch.empty((rows, 24, 2 * q), dtype=gl.DTYPE, device=X.device)
     partial = torch.empty((nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
     out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
     _launch("lt_lin_roundr", _ptr(X), _ptr(F), _ptr(Tc), *_sets_args(sets),
-            _ptr(partial), _ptr(out), q, *_r3_args(r3), npts, _stream())
+            _ptr(partial), _ptr(out), q, _ptr(r3), npts, _stream())
     lin_roundr.launches += 1
     return out, F
 

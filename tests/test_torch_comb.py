@@ -137,7 +137,8 @@ def test_fold_roundr_twin_matches_pallas_body(b_small):
     rows, q = 4, 32
     X, Tb, mu = rnd(rng, rows, 24, 4 * q), rnd(rng, 24, q), rnd(rng, rows, 3)
     r3 = [int(v) for v in rnd(rng, 3)]
-    S, F = comb.fold_roundr(tt(X), tt(Tb), tt(mu), r3, b_small)
+    S, F = comb.fold_roundr(tt(X), tt(Tb), tt(mu), tt(np.array(r3, np.uint64)),
+                            b_small)
     F_ref = ref_fold(X, r3)
     assert np.array_equal(gl.to_u64(F), F_ref)
     want = pallas_fold_sums(F_ref[..., :q], F_ref[..., q:], Tb, mu, b_small,
@@ -183,7 +184,8 @@ def test_lin_roundr_twin_matches_pallas_body(sets, npts):
     X, Tc = rnd(rng, rows, 24, 4 * q), rnd(rng, 24, q)
     r3 = [int(v) for v in rnd(rng, 3)]
     ls = comb.lin_sets(S, signs, rows, "cpu")
-    Sq, F = comb.lin_roundr(tt(X), tt(Tc), r3, ls, npts)
+    Sq, F = comb.lin_roundr(tt(X), tt(Tc), tt(np.array(r3, np.uint64)), ls,
+                            npts)
     F_ref = ref_fold(X, r3)
     assert np.array_equal(gl.to_u64(F), F_ref)
     want = pallas_lin_sums(F_ref[..., :q], F_ref[..., q:], Tc, S, signs, npts)
@@ -246,7 +248,7 @@ def test_cuda_kernels_match_twins():
         assert torch.equal(comb.fold_round0(*args),
                            comb.fold_round0_twin(*args))
         X = rnd(rng, 6, 24, 2048)
-        args = (d(X), d(Tb), d(mu), [int(v) for v in rnd(rng, 3)], b_small)
+        args = (d(X), d(Tb), d(mu), d(rnd(rng, 3)), b_small)
         for a, b in zip(comb.fold_roundr(*args), comb.fold_roundr_twin(*args)):
             assert torch.equal(a, b)
     S, signs = SETS7
@@ -256,6 +258,6 @@ def test_cuda_kernels_match_twins():
         args = (d(X), d(Tc), ls, npts)
         assert torch.equal(comb.lin_round0(*args), comb.lin_round0_twin(*args))
         X = rnd(rng, 9, 24, 2048)
-        args = (d(X), d(Tc), [int(v) for v in rnd(rng, 3)], ls, npts)
+        args = (d(X), d(Tc), d(rnd(rng, 3)), ls, npts)
         for a, b in zip(comb.lin_roundr(*args), comb.lin_roundr_twin(*args)):
             assert torch.equal(a, b)

@@ -16,7 +16,8 @@ from latticeum_tpu import backend as B
 from latticeum_tpu.commit.ajtai import AjtaiScheme
 from latticeum_tpu.crypto.transcript import Transcript
 from latticeum_tpu.field import goldilocks as gl_ref, host as H
-from latticeum_tpu.nifs import decomposition as dec, linearization as lin
+from latticeum_tpu.nifs import decomposition as dec, folding as fold
+from latticeum_tpu.nifs import linearization as lin
 from latticeum_tpu.nifs import nifs
 from latticeum_tpu.nifs.nifs import DecompositionParams
 from latticeum_tpu.nifs.structs import CCCS, Witness
@@ -118,17 +119,72 @@ def test_lin_rounds_match_host_sumcheck(nv, n0):
         c = gl_ref.from_int(np.array([H.ntt_from_u64(1 if x > 0 else gl.P - 1)
                                       for x in signs], dtype=object))
         two = lin.make_comb_fn2(S)
-        th = Transcript()
+        th = Transcript(record_samples=True)
         ph, ch, fh = sumcheck.prove(th, g, nv, 4, lambda v: two(v, c),
                                     eq_info=(beta, 3))
     brev = torch.from_numpy(bitrev_indices((n0 - 1).bit_length()))
     g_t = gl.from_limbs(g).transpose(1, 2)[..., brev].contiguous()
-    td = Transcript()
+    td = Transcript(record_samples=True)
     pd, cd, fd = accel_rounds.run_lin_rounds_factored(
         td, g_t, nv, 4, comb.lin_sets(S, signs, 3, "cpu"), beta)
     assert pd == ph and cd == ch
     assert list(td.ch.state) == list(th.ch.state)
     assert same(fd, (np.asarray(fh[0])[:, 0], np.asarray(fh[1])[:, 0]))
+    assert_same_transcript(td, th)
+
+
+def assert_same_transcript(td, th):
+    """What the chained sum-check leaves in the host transcript equals
+    what the host sum-check leaves: the challenger's state and pending
+    input, the absorptions and the recorded samples (which the collector's
+    ReplayTranscript replays, ROADMAP C.h8)."""
+    assert td.export_for_device() == th.export_for_device()
+    assert td.absorptions == th.absorptions
+    assert td.samples == th.samples
+
+
+@pytest.mark.parametrize("nv,K", [(3, 1), (4, 2)])
+def test_fold_rounds_match_host_sumcheck(nv, K):
+    """The eq-factored fold rounds against the host sum-check with the
+    fold's comb on the same MLEs: [eq_r1, c1, eq_r2, c2, eq_beta] and 2K*TAU
+    rows of balanced digits in {-1, 0, 1} (b_small = 2, so the round-0
+    zero-skip holds), with one fetch."""
+    b_small, tau = 2, 3
+    rng = np.random.default_rng(100 + nv)
+    n = 1 << nv
+
+    def point():
+        return [tuple(int(v) for v in rng.integers(0, gl.P, 3,
+                                                   dtype=np.uint64))
+                for _ in range(nv)]
+    r1, r2, beta = point(), point(), point()
+    mu_s = [tuple(int(v) for v in rng.integers(0, gl.P, 3, dtype=np.uint64))
+            for _ in range(2 * K - 1)] + [(1, 0, 0)]
+    digits = np.zeros((2 * K * tau, n, 24), np.uint64)
+    digits[..., 0::3] = np.array([gl.P - 1, 0, 1], np.uint64)[
+        rng.integers(0, 3, (2 * K * tau, n, 8))]
+    c_rows = rng.integers(0, gl.P, (2, n, 24), dtype=np.uint64)
+    with B.numpy_mode():
+        eqs = [gl_ref.to_int(mle.build_eq_table(p)).astype(np.uint64)
+               for p in (r1, r2, beta)]
+        g = np.stack([eqs[0], c_rows[0], eqs[1], c_rows[1], eqs[2]]
+                     + list(digits))
+        g = ((g & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+             (g >> np.uint64(32)).astype(np.uint32))
+        th = Transcript(record_samples=True)
+        ph, ch, fh = sumcheck.prove(th, g, nv, 2 * b_small,
+                                    fold.make_comb_fn(mu_s, b_small, K))
+    brev = torch.from_numpy(bitrev_indices(nv))
+    g_t = gl.from_limbs(g).transpose(1, 2)[..., brev].contiguous()
+    td = Transcript(record_samples=True)
+    before = accel_rounds.fetches
+    pd, cd, fd = accel_rounds.run_fold_rounds_factored(
+        td, g_t[:5], g_t[5:], nv, 2 * b_small, mu_s, (r1, r2, beta), b_small,
+        K)
+    assert accel_rounds.fetches == before + 1
+    assert pd == ph and cd == ch
+    assert same(fd, (np.asarray(fh[0])[:, 0], np.asarray(fh[1])[:, 0]))
+    assert_same_transcript(td, th)
 
 
 def test_engine_primitives_match_reference():
