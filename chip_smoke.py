@@ -11,7 +11,10 @@ Phases (each prints its own lines; any failure exits non-zero):
               registers and spills of every perm8 and sponge8 form (S lanes
               per state, S = 1, 2, 4, 8); the
               SASS of perm8 and of one field operation (probe kernels)
-              counted for the bounds;
+              counted for the bounds; the latency in SM clocks of one
+              dependent gl_mul, gl_add, 64-bit shuffle and of the width-16
+              permutation's own steps (latency probes, clock64 around
+              chains of one warp);
   3. tree     every form of the perm8 kernel against its plain-torch twin
               on the card, exact, at n = 1 to 524288 with the edge values in
               every position, each timed at n = 1 to 524288 by a CUDA graph
@@ -28,13 +31,16 @@ Phases (each prints its own lines; any failure exits non-zero):
               page tree's parts;
   4. kernels  each of the four comb kernels against its plain-torch twin on
               the card, exact integer equality, at a small shape and at the
-              production round shape, with kernel and twin times;
+              production round shape, with kernel and twin times; the lin
+              kernels also with random ring constants c_i (not +-1) at the
+              production shape, timed;
   5. claims   the digit-plane kernels (digit_split, plane_recombine) against
               their twins at edge shapes (several chunks, every padding) and
               at the four production shapes of the evaluation claims (dec u,
               fold eta, dec v, lin v); ring_contract against the slot-wise
               products at the fold-eta and dec-v shapes; times of the split,
-              the torch._int_mm products, the recombination, the whole
+              the torch._int_mm products, the recombination (CUDA events
+              over 3 calls, the record, and a CUDA graph of 20), the whole
               contraction and the slot-wise form, each beside its bound;
   6. fiat-shamir  round_tail (crypto/challenger.py, csrc/challenger.cu)
               against its twin, bit for bit, at the production lin and fold
@@ -42,11 +48,14 @@ Phases (each prints its own lines; any failure exits non-zero):
               each at every pending length 0 ... 11, and over a chain of 34
               launches (a step's 17 lin and 17 fold rounds) against the
               twin's chain; perm16_chain against its twin; each shape timed
-              (CUDA graph) beside its bound and the chain of its
-              permutations alone (the latency floor);
+              (CUDA graph) beside its bound, the chain of its
+              permutations alone (the latency floor) and the design's
+              critical path from the latency probes;
   7. small    two chained folds of the port on the card against the host
-              NIFS on the test CCS (transcript, proofs, accumulator), with
-              the row-constant and with a general dense Ajtai scheme; one
+              NIFS on the test CCS (transcript, proofs, accumulator, the
+              host verifier), with the row-constant and with a general
+              dense Ajtai scheme, and with CCS constants that are not +-1
+              (the lin comb kernels with ring constants, ROADMAP C.h4); one
               production-size general commit (kappa 32, N 98815, 14
               witnesses) against the plain chunked matvec, timed;
   8. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
@@ -158,6 +167,54 @@ PROBE(fq3_mul, x = fq3_mul(x, y); y = fq3_mul(y, x))
 PROBE(fq3_square, x = fq3_square(y); y = fq3_square(x))
 """
 PROBE_OPS = ("add", "sub", "mul", "mul_w", "fq3_mul", "fq3_square")
+# Latency probes: one warp chains N dependent steps of one operation of
+# csrc/challenger.cu (or field.cuh) between two clock64 reads that depend
+# on the chain's value; (cycles at N = 96 - cycles at N = 32) / 64 is one
+# step's latency in SM clocks, whatever the reads and set-up cost.  The
+# chain is a loop unrolled 8 times, so its code stays in the instruction
+# cache.
+LATENCY_SRC = r"""
+#include "challenger.cu"
+__device__ __forceinline__ long long clk(u64 dep) {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "l"(dep) : "memory");
+  return t;
+}
+#define CHAIN(step) \
+  _Pragma("unroll 8") for (int k = 0; k < N; ++k) { step; }
+template <int N>
+__global__ void __launch_bounds__(32)
+    lat_kernel(int op, const u64 *a, u64 *o, long long *cyc) {
+  const int lane = threadIdx.x;
+  u64 x = a[lane];
+  const u64 y = a[32 + lane];
+  const long long t0 = clk(x);
+  x ^= (u64)t0 >> 62;
+  switch (op) {
+    case 0: CHAIN(x = gl_mul(x, y)); break;
+    case 1: CHAIN(x = gl_add(x, y)); break;
+    case 2: CHAIN(x = __shfl_xor_sync(0xffffffffu, x, 1)); break;
+    case 3: {
+      Acc s = acc_of(x);
+      const Acc b = acc_of(y);
+      CHAIN(s = acc_add(s, b));
+      x = (((u64)s.w1 << 32) | s.w0) ^ s.w2;
+    } break;
+    case 4: CHAIN(x = acc_fold(Acc{(u32)x, (u32)(x >> 32), (u32)x & 31u}));
+      break;
+  }
+  const long long t1 = clk(x);
+  o[lane] = x;
+  cyc[lane] = t1 - t0;
+}
+extern "C" int lt_latency(int op, int n, const u64 *a, u64 *o,
+                          long long *cyc) {
+  if (n == 32) lat_kernel<32><<<1, 32>>>(op, a, o, cyc);
+  else lat_kernel<96><<<1, 32>>>(op, a, o, cyc);
+  return (int)cudaGetLastError();
+}
+"""
+LATENCY_OPS = ("gl_mul", "gl_add", "shfl64", "acc_add", "acc_fold")
 MUL3, SQR3 = {"fq3_mul": 1}, {"fq3_square": 1}
 ADD3, SUB3 = {"add": 3}, {"sub": 3}
 # One permutation of csrc/poseidon2.cu: 8 x 4 x 8 + 22 x (4 + 8) gl_mul;
@@ -227,7 +284,7 @@ def main():
     from latticeum_tpu_torch.zkvm import comb
 
     dev = torch.device("cuda")
-    card, rate, mix, perm8_sass, perm16_sass = device_and_build(
+    card, rate, mix, perm8_sass, perm16_sass, lat = device_and_build(
         torch, kernels, native)
 
     phase("tree")
@@ -246,7 +303,7 @@ def main():
         f"multisets={len(ccs.S)}, lin cap={prover.dn._cap_pow2})")
 
     phase("kernels")
-    if prover.dn._lin_sets is None:
+    if prover.dn._lin_sets.signs is None:
         fail("the CCS lin constants are not all +-1")
     records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
                             dev, rate, mix) + records
@@ -256,11 +313,12 @@ def main():
 
     phase("fiat-shamir")
     records += fiat_shamir_checks(torch, np, gl, prover, dev, rate,
-                                  perm16_sass)
+                                  perm16_sass, lat)
 
     phase("small reference")
     small_reference(torch, dev, general=False)
     small_reference(torch, dev, general=True)
+    small_reference(torch, dev, general=False, general_c=True)
     general_commit(torch, np, gl, prover, dev)
 
     phase("main path")
@@ -366,6 +424,7 @@ def device_and_build(torch, kernels, native):
 
     phase("build")
     t0 = time.time()
+    lat_build = start_latency_build(kernels)
     so = kernels.build()
     kernels.lib()
     log(f"build: {time.time() - t0:.2f} s -> {os.path.relpath(so, ROOT)}")
@@ -403,7 +462,78 @@ def device_and_build(torch, kernels, native):
     for name, info in ptxas_by_function(out).items():
         if "round_tail" in name or "perm16_chain" in name:
             log(f"  ptxas {name}: {info}")
-    return card, rate, mix, perm8_sass, perm16_sass
+    rate["sm_mhz"] = sm_mhz
+    lat = latencies(torch, *lat_build)
+    log("latency of one dependent step, SM clocks (one warp, clock64): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in lat.items()))
+    return card, rate, mix, perm8_sass, perm16_sass, lat
+
+
+def start_latency_build(kernels):
+    """Start nvcc on the latency probes (LATENCY_SRC) into a shared
+    library beside the kernels' build.  Returns (process, library,
+    source)."""
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    src = kernels.BUILD_DIR / f"latency_probe.{os.getpid()}.cu"
+    lib = src.with_suffix(".so")
+    src.write_text(LATENCY_SRC)
+    proc = subprocess.Popen(
+        [kernels.nvcc(), *kernels.ARCH_FLAGS, "-shared", "-Xcompiler",
+         "-fPIC", "-I", str(kernels.CSRC), "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib, src
+
+
+def latencies(torch, proc, lib, src):
+    """{op: SM clocks of one dependent step} for LATENCY_OPS, each from
+    two chain lengths."""
+    import ctypes
+
+    import numpy as np
+    out = proc.communicate()[0]
+    src.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        fail(f"the latency probes did not build: {out}")
+    try:
+        so = ctypes.CDLL(str(lib))
+    finally:
+        lib.unlink(missing_ok=True)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    so.lt_latency.argtypes = [i32, i32, vp, vp, vp]
+    so.lt_latency.restype = i32
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(rng.integers(0, 1 << 63, 64, dtype=np.int64)).cuda()
+    o = torch.empty(32, dtype=torch.int64, device="cuda")
+    cyc = torch.empty(32, dtype=torch.int64, device="cuda")
+    res = {}
+    for op, name in enumerate(LATENCY_OPS):
+        clocks = {}
+        for n in (32, 96):
+            for _ in range(2):                  # the second run is timed
+                err = so.lt_latency(op, n, a.data_ptr(), o.data_ptr(),
+                                    cyc.data_ptr())
+                if err:
+                    fail(f"latency probe {name} did not launch ({err})")
+                torch.cuda.synchronize()
+            clocks[n] = int(cyc[0])
+        res[name] = (clocks[96] - clocks[32]) / 64
+    return res
+
+
+def perm16_path(lat):
+    """SM clocks of the critical path of one permutation of
+    csrc/challenger.cu's permute16, as dependent steps times the probes'
+    latencies: the initial linear layer; 8 external rounds of an s-box
+    (3 dependent multiplies) and a linear layer (4 butterfly levels of a
+    shuffle and an add, 2 adds, a fold); 22 internal rounds of an s-box,
+    the larger of the diagonal multiply and the broadcast shuffle, 2 adds
+    and a fold."""
+    sbox = 3 * lat["gl_mul"]
+    lin = (4 * (lat["shfl64"] + lat["acc_add"]) + 2 * lat["acc_add"]
+           + lat["acc_fold"])
+    tail = (max(lat["gl_mul"], lat["shfl64"]) + 2 * lat["acc_add"]
+            + lat["acc_fold"])
+    return lin + 8 * (sbox + lin) + 22 * (sbox + tail)
 
 
 def cuda_ms(torch, fn, reps):
@@ -554,12 +684,15 @@ def fold_ops(rows, q, npts, b_small, fold):
 
 
 def lin_ops(sets, q, npts, fold):
-    """Field operations of one lin comb launch (csrc/comb.cu lin_body)."""
+    """Field operations of one lin comb launch (csrc/comb.cu lin_body),
+    with +-1 signs or ring constants (one more Fq3 multiply a point)."""
     terms = [(npts, MUL3)]
     for s in sets.S:
         k = len(s)
         terms += [(k, SUB3), (k * npts, ADD3), ((k - 1) * npts, MUL3),
                   (npts, ADD3)]
+        if sets.rings is not None:
+            terms += [(npts, MUL3)]
         if fold:
             terms += [(2 * k, SUB3), (2 * k, MUL3), (2 * k, ADD3)]
     return tally((8 * q, tally(*terms)),)
@@ -830,7 +963,9 @@ def tree_checks(torch, np, gl, poseidon2, dev, rate, perm8_sass):
 
 def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
     """Every comb kernel against its twin: small shape, then production
-    shape (timed).  Returns the kernel records (launches filled in later)."""
+    shape (timed); the lin kernels also with ring constants c_i (random
+    rings, not +-1) at the production shape, timed too.  Returns the
+    kernel records (launches filled in later)."""
     rng = np.random.default_rng(7)
 
     def rnd(*shape):
@@ -841,6 +976,11 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
         return rnd(3)
 
     sets_small = comb.lin_sets([(0, 3, 5), (1,), (2, 4)], (1, -1, 1), 6, dev)
+    ring_rng = np.random.default_rng(8)
+    sets_ring = comb.lin_sets_general(
+        sets_prod.S, [[int(v) for v in ring_rng.integers(0, gl.P, 24,
+                                                         dtype=np.uint64)]
+                      for _ in sets_prod.S], sets_prod.rows, dev)
     deg_q = ccs.d + 1
     rows_f, n_f, b_small = 90, 1 << 17, 2
     rows_l, n_l = ccs.t, 16384
@@ -862,12 +1002,41 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
             lambda: (rnd(rows_l, 24, n_l), rnd(24, n_l // 4), r3(),
                      sets_prod, deg_q)),
     }
+
+    def cost(w, X, sets):
+        """(bytes, work by pipe) of one production launch of `w`."""
+        rows, width = X.shape[0], X.shape[-1]
+        fold = w.__name__.endswith("roundr")
+        q = width // (4 if fold else 2)
+        if w.__name__.startswith("fold"):
+            npts = 2 * b_small
+            nbytes = 8 * (X.numel() + 24 * q + 3 * rows + npts * 24)
+            ops = fold_ops(rows, q, npts, b_small, fold)
+        else:
+            npts = deg_q
+            nbytes = 8 * (X.numel() + 24 * q + npts * 24)
+            if sets.rings is not None:
+                nbytes += 8 * sets.rings.numel()
+            ops = lin_ops(sets, q, npts, fold)
+        if fold:
+            nbytes += 8 * rows * 24 * 2 * q      # the folded F written
+        return nbytes, pipes(ops, mix)
+
+    def with_rings(make):
+        def ring_args():
+            args = make()
+            return args[:-2] + (sets_ring, args[-1])
+        return ring_args
+
     records = []
     for w in comb.WRAPPERS:
         twin = comb.TWINS[w]
         small, prod = cases[w.__name__]
         worst = 0
-        for label, make in (("small", small), ("production", prod)):
+        steps = [("small", small), ("production", prod)]
+        if w.__name__.startswith("lin"):
+            steps.insert(1, ("production, ring constants", with_rings(prod)))
+        for label, make in steps:
             args = make()
             got = w(*args)
             want = twin(*args)
@@ -879,40 +1048,35 @@ def kernel_checks(torch, np, gl, comb, ccs, sets_prod, dev, rate, mix):
                 f"{'bit-exact' if e == 0 else f'MISMATCH max_abs_err={e}'}")
             if e:
                 fail(f"{w.__name__} disagrees with its twin")
+            if label == "production, ring constants":
+                ring_ms = cuda_ms(torch, lambda: w(*args), 5)
+                ring_b = bound(rate, *cost(w, args[0], sets_ring))[0]
+                log(f"{w.__name__} production, ring constants: kernel "
+                    f"{ring_ms:.3f} ms, bound {ring_b:.4f} ms, "
+                    f"{100 * ring_b / ring_ms:.1f} % of it")
+            del got, want
         ms = cuda_ms(torch, lambda: w(*args), 5)
         plain_ms = cuda_ms(torch, lambda: twin(*args), 1)
         log(f"{w.__name__} production: kernel {ms:.3f} ms, twin "
             f"{plain_ms:.3f} ms")
-        X = args[0]
-        rows, width = X.shape[0], X.shape[-1]
-        fold = w.__name__.endswith("roundr")
-        q = width // (4 if fold else 2)
-        if w.__name__.startswith("fold"):
-            npts = 2 * b_small
-            nbytes = 8 * (X.numel() + 24 * q + 3 * rows + npts * 24)
-            ops = fold_ops(rows, q, npts, b_small, fold)
-        else:
-            npts = deg_q
-            nbytes = 8 * (X.numel() + 24 * q + npts * 24)
-            ops = lin_ops(sets_prod, q, npts, fold)
-        if fold:
-            nbytes += 8 * rows * 24 * 2 * q      # the folded F written
         records.append(record(w.__name__, "latticeum_tpu_torch/csrc/comb.cu",
-                              worst, ms, plain_ms, rate, nbytes,
-                              pipes(ops, mix)))
-        del args, X
+                              worst, ms, plain_ms, rate,
+                              *cost(w, args[0], sets_prod)))
+        del args
         torch.cuda.empty_cache()
     return records
 
 
-def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass):
+def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass, lat):
     """round_tail against its twin (the wrapper on CPU copies of the same
     inputs), bit for bit: at the production lin and fold round shapes and
     unweighted, each at every pending length 0 ... 11, then over a chain of
     34 launches (a step's 14 factored and 3 reconstruction lin rounds, then
     17 fold rounds) against the twin's chain; perm16_chain against its twin.
-    Each shape timed by a CUDA graph beside its bound and the chain of its
-    permutations alone.  Returns round_tail's record (the fold round)."""
+    Each shape timed by a CUDA graph beside its bound, the chain of its
+    permutations alone and the design's critical path (perm16_path, from
+    the latency probes `lat`).  Returns round_tail's record (the fold
+    round)."""
     from latticeum_tpu_torch.crypto import challenger
     from latticeum_tpu_torch.zkvm import accel_rounds
     rng = np.random.default_rng(13)
@@ -1003,6 +1167,11 @@ def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass):
             fail(f"perm16_chain n={n} differs from its twin")
     log("perm16_chain n=1, 13: bit-exact with the twin")
 
+    path = perm16_path(lat)
+    mhz = rate["sm_mhz"]
+    log(f"perm16 critical path of the design: {path:.0f} SM clocks a "
+        f"permutation from its dependent steps ({path / mhz:.3f} us at "
+        f"{mhz:.0f} MHz)")
     rec = None
     for kind in ("fold", "lin", "unweighted"):
         b = 3                                   # rounds after the first
@@ -1024,20 +1193,30 @@ def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass):
                       + 3 * tables * 3 + 2 * 16 + b + 24 * n_msg + 3 + 166)
         work = {c: perm16_sass[c] * perms for c in CLASSES}
         b_ms = bound(rate, nbytes, work)[0]
+        per_perm = 1e3 * floor / perms
         log(f"round_tail {kind} (L = {b + 24 * n_msg}, {perms} "
             f"permutations): {ms:.4f} ms (CUDA graph of 50); the chain of "
             f"its {perms} permutations alone {floor:.4f} ms (the latency "
-            f"floor of the design); bound {b_ms:.6f} ms, {100 * b_ms / ms:.3f}"
-            f" % of it; twin {plain_ms:.3f} ms (one call)")
+            f"floor of the design), {per_perm:.3f} us = "
+            f"{per_perm * mhz:.0f} SM clocks a permutation against the "
+            f"critical path's {path:.0f}; bound {b_ms:.6f} ms, "
+            f"{100 * b_ms / ms:.3f} % of it; twin {plain_ms:.3f} ms (one "
+            "call)")
         if kind == "fold":
             rec = record("round_tail", CH_SOURCE, worst, ms, plain_ms, rate,
                          nbytes, work)
     return [rec]
 
 
-def small_reference(torch, dev, general):
+def small_reference(torch, dev, general, general_c=False):
     """Two chained folds of TorchNifs on the card vs the host NIFS, with
-    the row-constant or a general dense Ajtai scheme."""
+    the row-constant or a general dense Ajtai scheme; with general_c, on
+    the test CCS with c = [rho, -rho] for a full random ring rho (not +-1:
+    the lin comb kernels take the rings, ROADMAP C.h4).  Each fold also
+    passes the host verifier and launches the lin comb kernels."""
+    import dataclasses
+
+    import numpy as np
     from latticeum_tpu_torch.host.commit.ajtai import AjtaiScheme
     from latticeum_tpu_torch.host.crypto.transcript import Transcript
     from latticeum_tpu_torch.host.field import goldilocks as glr, host as H
@@ -1047,12 +1226,17 @@ def small_reference(torch, dev, general):
     from latticeum_tpu_torch.host.nifs.test_fixtures import (
         TEST_B, TEST_B_SMALL, TEST_K, TEST_L, get_test_ccs, get_test_z,
         z_to_device)
+    from latticeum_tpu_torch.zkvm import comb
     from latticeum_tpu_torch.zkvm.accel import Engine
     from latticeum_tpu_torch.zkvm.accel_nifs import TorchNifs
 
     params = DecompositionParams(B=TEST_B, L=TEST_L, B_SMALL=TEST_B_SMALL,
                                  K=TEST_K)
     ccs = get_test_ccs()
+    if general_c:
+        rho = [int(v) for v in np.random.default_rng(61).integers(
+            0, glr.P, 24, dtype=np.uint64)]
+        ccs = dataclasses.replace(ccs, c=[rho, H.ntt_neg(rho)])
     cms, wits, scheme = [], [], None
     for x in (3, 5):
         z = get_test_z(x)
@@ -1072,10 +1256,14 @@ def small_reference(torch, dev, general):
     dn = TorchNifs(e, ccs, params, scheme)
     if dn.general_ajtai != general:
         fail("TorchNifs took the wrong Ajtai route")
+    if (dn._lin_sets.signs is None) != general_c:
+        fail("TorchNifs took the wrong lin route")
+    lin_kernels = comb.lin_round0.launches + comb.lin_roundr.launches
     acc_h, w_h, acc_d = acc, acc_wit, acc
     w_d = dn.build_witness(e.put(acc_wit.w_ccs))
     for i, (cm_i, wit) in enumerate(zip(cms, wits), start=1):
         th, td = Transcript(), Transcript()
+        acc_prev = acc_h
         acc_h, w_h, ph = nifs.prove(acc_h, w_h, cm_i, wit, th, ccs, scheme,
                                     params)
         acc_d, w_d, pd = dn.prove(acc_d, w_d, cm_i,
@@ -1083,10 +1271,17 @@ def small_reference(torch, dev, general):
         if (list(th.ch.state) != list(td.ch.state) or ph != pd
                 or acc_h != acc_d):
             fail(f"small fold {i} differs from the host NIFS")
+        if nifs.verify(acc_prev, cm_i, pd, Transcript(), ccs,
+                       params) != acc_d:
+            fail(f"small fold {i}: the host verifier disagrees")
+    if comb.lin_round0.launches + comb.lin_roundr.launches == lin_kernels:
+        fail("the small folds launched no lin comb kernel")
     log("small reference: 2 chained folds match the host NIFS (transcript, "
-        "proofs, accumulator), "
+        "proofs, accumulator) and pass its verifier, "
         + ("general dense Ajtai scheme" if general else
-           "row-constant Ajtai scheme"))
+           "row-constant Ajtai scheme")
+        + (", CCS constants c = [rho, -rho] for a random ring rho (the "
+           "lin comb kernels with ring constants)" if general_c else ""))
 
 
 def int8_err(a, b):
@@ -1206,8 +1401,10 @@ def claims_checks(torch, np, gl, mxu, prover, dev, rate, mix):
               "split B": cuda_ms(torch, lambda: mxu.digit_split(B, t_layout),
                                  3),
               "int_mm": cuda_ms(torch, gemms, 3),
-              "recombine": cuda_ms(torch, lambda: mxu.plane_recombine(O, acc),
-                                   3),
+              "recombine": cuda_ms(torch, lambda: mxu.plane_recombine(
+                  O, acc), 3),
+              "recombine graph": graph_ms(torch, lambda: mxu.plane_recombine(
+                  O, acc), 20),
               "ring_contract": cuda_ms(torch, lambda: mxu.ring_contract(
                   A, B, t_layout), 3)}
         twin = {"split A": timed_once(torch, lambda: mxu.digit_split_twin(
@@ -1242,7 +1439,9 @@ def claims_checks(torch, np, gl, mxu, prover, dev, rate, mix):
             f"operations at {INT8_OPS_PER_S:.4g}/s, {mm_bytes} bytes), "
             f"{100e3 * mm_bound / ms['int_mm']:.1f} %; recombine "
             f"{rec_b[0]:.5f} ms by {rec_b[2]} ({rec_bytes} bytes), "
-            f"{100 * rec_b[0] / ms['recombine']:.1f} % (per chunk)")
+            f"{100 * rec_b[0] / ms['recombine']:.1f} % (per chunk; "
+            f"{100 * rec_b[0] / ms['recombine graph']:.1f} % of the graph "
+            "time)")
         if label == "fold eta":
             records.append(record(
                 "digit_split", MXU_SOURCE, worst["digit_split"],

@@ -22,25 +22,47 @@
 //
 // What bounds it: a serial chain.  A round observes L = pending + 24 n_msg
 // values, ceil(L / 12) + 2 permutations (13 for a production fold round,
-// 23 for a lin round), each 30 rounds of dependent 64-bit modular
+// 21 for a lin round), each 30 rounds of dependent 64-bit modular
 // multiplies; the message and E are a few hundred multiplies spread over
 // the threads.  The work of the permutations is tiny against the card
 // (chip_smoke.py counts one permutation's SASS in the straight-line
 // one-thread form of the CH_STRAIGHT_LINE build); one chain cannot fill it,
-// so the design shortens the chain: one warp holds the state, lane i (and
-// lane i + 16, a copy) element i, so each round's s-boxes run side by side
-// and the linear layers are shuffles.  M4 is circulant, d_i = t + s_i +
-// 2 s_{i+1} with t the quad's sum (a butterfly over lanes ^1, ^2), the
-// column sums a butterfly over ^4, ^8, the internal round's sum one over
-// ^1 ... ^8.  The round loops stay loops: unrolled, perm8's code outgrew
-// the instruction caches and ran 2.4x slower (csrc/poseidon2.cu).
+// so the design shortens the chain.  One warp holds the state, lane i (and
+// lane i + 16, a copy) element i: with the whole state in one lane, the
+// lane would issue the straight-line form's 52,000 instructions a
+// permutation, at most one a clock, which is slower than the chain.  So
+// each round's s-boxes run side by side and the linear layers are
+// shuffles.  What is on the chain (permute16 below):
+//  * the s-box at multiply depth 3 (x^2; x^3 and x^4; x^7);
+//  * in an internal round, the sum of elements 1 ... 15 runs as a
+//    butterfly beside the s-box of element 0, which every lane computes
+//    (no divergent branch) and one shuffle broadcasts, so the round is the
+//    s-box, one multiply and two adds;
+//  * the linear layers add without reducing: a sum is kept as a 96-bit
+//    integer (three 32-bit words, one carry chain a step) and folded mod p
+//    once, so a butterfly level is a shuffle and three dependent adds;
+//    values between rounds stay below 2^64 but not canonical (gl_mul takes
+//    any u64), and only the permutation's output is made canonical;
+//  * the next round's constant is read from shared memory one round ahead
+//    and added inside the fold.
+// The 22 internal rounds are unrolled and the external round loops stay
+// loops: on an NVIDIA H100 80GB HBM3 at 700 W a fold round took 0.1224 ms
+// with every loop kept, 0.1076, 0.1040 and 0.1031 ms with the internal
+// loop unrolled 2, 11 and 22 times, and 0.1072 ms with the external loops
+// unrolled as well (the permutations alone 0.0977 to 0.0958 ms).  One warp
+// runs this code, so it does not meet the instruction-cache limit that
+// made unrolled perm8, with many warps, 2.4x slower (csrc/poseidon2.cu).
+// The first design (one element a lane, the s-box in lane 0 behind a
+// branch, then a 4-level butterfly of canonical adds; the constants read
+// on the chain) took 11.9 us a permutation on the same card.
 // perm16_chain_kernel runs n permutations of one state and nothing else:
 // its time at a round's count is the latency floor of this design.
 //
 // The constants come from the caller as one device array of 166 u64
 // (crypto/challenger.py builds it from host/crypto/consts.py): [0, 64) the
 // 4 x 16 initial external constants, [64, 128) the terminal ones,
-// [128, 150) the 22 internal ones, [150, 166) the internal diagonal.
+// [128, 150) the 22 internal ones, [150, 166) the internal diagonal.  Each
+// launch lays them out per lane in shared memory (load_consts).
 
 #include <cuda_runtime.h>
 
@@ -118,6 +140,8 @@ extern "C" __global__ void perm16_straight_kernel(
 #else
 
 #define CH_FULL 0xffffffffu
+#define CH_ROUNDS 30
+#define CH_TABLE (32 * CH_WIDTH)
 #define RT_THREADS 128
 #define RT_MAX_TABLES 3
 #define RT_MAX_MSG 16
@@ -126,45 +150,136 @@ extern "C" __global__ void perm16_straight_kernel(
 
 namespace {
 
-// The external linear layer on the warp's state (element lane & 15 in each
-// lane; lanes 16-31 hold a copy and never leave their half).
-__device__ __forceinline__ u64 mds16(u64 s, int lane) {
-  u64 t = gl_add(s, __shfl_xor_sync(CH_FULL, s, 1));
-  t = gl_add(t, __shfl_xor_sync(CH_FULL, t, 2));
-  const u64 next = __shfl_sync(CH_FULL, s, (lane & ~3) | ((lane + 1) & 3));
-  const u64 d = gl_add(gl_add(t, s), gl_add(next, next));
-  u64 col = gl_add(d, __shfl_xor_sync(CH_FULL, d, 4));
-  col = gl_add(col, __shfl_xor_sync(CH_FULL, col, 8));
-  return gl_add(d, col);
+typedef unsigned int u32;
+
+// A sum of a few field values kept as the exact integer
+// w0 + 2^32 w1 + 2^64 w2 (w2 small): the linear layers add without a
+// reduction and fold once at the end.
+struct Acc {
+  u32 w0, w1, w2;
+};
+
+__device__ __forceinline__ Acc acc_of(u64 v) {
+  return Acc{(u32)v, (u32)(v >> 32), 0u};
 }
 
-// One permutation of the warp's state; k: the 166 constants in shared
-// memory.  Every lane of the warp must call it.
-__device__ __forceinline__ u64 permute16(u64 s, const u64 *k, int lane) {
+// One carry chain of three 32-bit adds.
+__device__ __forceinline__ Acc acc_add(Acc a, const Acc &b) {
+  asm("add.cc.u32 %0, %0, %3;\n\t"
+      "addc.cc.u32 %1, %1, %4;\n\t"
+      "addc.u32 %2, %2, %5;"
+      : "+r"(a.w0), "+r"(a.w1), "+r"(a.w2)
+      : "r"(b.w0), "r"(b.w1), "r"(b.w2));
+  return a;
+}
+
+__device__ __forceinline__ Acc acc_xor(const Acc &a, int m) {
+  return Acc{__shfl_xor_sync(CH_FULL, a.w0, m),
+             __shfl_xor_sync(CH_FULL, a.w1, m),
+             __shfl_xor_sync(CH_FULL, a.w2, m)};
+}
+
+// The sum mod p as one u64 below 2^64, not always canonical:
+// lo + w2 (2^64 mod p).  w2 < 64 at every call here, so w2 EPS < 2^38
+// and after a carry out of 2^64 the sum is below 2^38 + 2^32: adding EPS
+// once more cannot carry.
+__device__ __forceinline__ u64 acc_fold(const Acc &a) {
+  const u64 lo = ((u64)a.w1 << 32) | a.w0;
+  const u64 e = ((u64)a.w2 << 32) - a.w2;
+  const u64 s = lo + e;
+  return s < e ? s + EPS : s;
+}
+
+__device__ __forceinline__ u64 canon(u64 x) { return x >= P ? x - P : x; }
+
+// x^7 at multiply depth 3: x^2; x^3 and x^4 side by side; x^7.  gl_mul
+// takes any u64 and returns a canonical value.
+__device__ __forceinline__ u64 ch_pow7(u64 x) {
+  const u64 x2 = gl_mul(x, x);
+  const u64 x3 = gl_mul(x2, x);
+  const u64 x4 = gl_mul(x2, x2);
+  return gl_mul(x3, x4);
+}
+
+// The external linear layer on the warp's state (element lane & 15 in each
+// lane; lanes 16-31 hold a copy and never leave their half), plus this
+// lane's constant c of the next round.  M4 is circulant,
+// d_i = t + s_i + 2 s_{i+1} with t the quad's sum; then each element gets
+// its column's sum over the 4 quads.  At most 36 values of < 2^64 are
+// summed (w2 < 36) before the one fold.
+__device__ __forceinline__ u64 linear16(u64 y, int lane, u64 c) {
+  const Acc a = acc_of(y);
+  Acc t = acc_add(a, acc_xor(a, 1));
+  t = acc_add(t, acc_xor(t, 2));
+  const Acc n = acc_of(
+      __shfl_sync(CH_FULL, y, (lane & ~3) | ((lane + 1) & 3)));
+  const Acc d = acc_add(t, acc_add(a, acc_add(n, n)));
+  Acc col = acc_add(d, acc_xor(d, 4));
+  col = acc_add(col, acc_xor(col, 8));
+  return acc_fold(acc_add(acc_add(d, acc_of(c)), col));
+}
+
+// One permutation of the warp's state s (canonical in, canonical out).
+// kt: the (32, 16) table of what lane e adds before round r's s-boxes
+// (round r's constant of element e; 0 for e != 0 in the internal rounds;
+// rows 30 and 31 zero), in shared memory; diag: this lane's internal
+// diagonal entry.  Every lane of the warp must call it.
+//
+// Between rounds each lane carries x, its element plus the next round's
+// constant, below 2^64 but not reduced further: gl_mul and the sums take
+// any u64.  The next round's constant is read one round ahead.  In an
+// internal round every lane computes the s-box (only lane 0's is kept)
+// while the sum of elements 1 ... 15 runs as a butterfly beside it; one
+// shuffle then broadcasts lane 0's s-box, so the round's chain is the
+// s-box, one multiply by the diagonal and two adds, not the s-box
+// followed by the butterfly.
+__device__ __forceinline__ u64 permute16(u64 s, const u64 *kt, u64 diag,
+                                         int lane) {
   const int e = lane & 15;
-  const u64 diag = k[CH_DIAG + e];
-  s = mds16(s, lane);
+  u64 x = linear16(s, lane, kt[e]);
+  u64 c = kt[CH_WIDTH + e];
 #pragma unroll 1
-  for (int r = 0; r < 4; ++r)
-    s = mds16(gl_pow7(gl_add(s, k[CH_EXT_INIT + CH_WIDTH * r + e])), lane);
-#pragma unroll 1
-  for (int r = 0; r < 22; ++r) {
-    if (e == 0) s = gl_pow7(gl_add(s, k[CH_INTERNAL + r]));
-    u64 tot = s;
+  for (int r = 0; r < 4; ++r) {
+    x = linear16(ch_pow7(x), lane, c);
+    c = kt[CH_WIDTH * (r + 2) + e];
+  }
+#pragma unroll
+  for (int r = 4; r < 26; ++r) {
+    const u64 y = ch_pow7(x);
+    Acc rest = acc_of(e == 0 ? 0ULL : x);
 #pragma unroll
     for (int m = 1; m < CH_WIDTH; m <<= 1)
-      tot = gl_add(tot, __shfl_xor_sync(CH_FULL, tot, m));
-    s = gl_add(gl_mul(s, diag), tot);
+      rest = acc_add(rest, acc_xor(rest, m));
+    rest = acc_add(rest, acc_of(c));
+    const u64 y0 = __shfl_sync(CH_FULL, y, lane & 16);
+    const u64 m = gl_mul(e == 0 ? y : x, diag);
+    // s_e d_e + (s-box of s_0) + sum_{i >= 1} s_i + c: 18 values, w2 < 18
+    x = acc_fold(acc_add(acc_add(acc_of(m), acc_of(y0)), rest));
+    c = kt[CH_WIDTH * (r + 2) + e];
   }
 #pragma unroll 1
-  for (int r = 0; r < 4; ++r)
-    s = mds16(gl_pow7(gl_add(s, k[CH_EXT_TERM + CH_WIDTH * r + e])), lane);
-  return s;
+  for (int r = 26; r < CH_ROUNDS; ++r) {
+    x = linear16(ch_pow7(x), lane, c);
+    c = kt[CH_WIDTH * (r + 2) + e];
+  }
+  return canon(x);
 }
 
-__device__ __forceinline__ void load_consts(u64 *k,
+// The per-lane constant table of permute16 from the caller's 166
+// constants.
+__device__ __forceinline__ void load_consts(u64 *kt,
                                             const u64 *__restrict__ consts) {
-  for (int i = threadIdx.x; i < CH_NCONST; i += blockDim.x) k[i] = consts[i];
+  for (int i = threadIdx.x; i < CH_TABLE; i += blockDim.x) {
+    const int r = i / CH_WIDTH, e = i % CH_WIDTH;
+    u64 v = 0ULL;
+    if (r < 4)
+      v = consts[CH_EXT_INIT + CH_WIDTH * r + e];
+    else if (r < 26)
+      v = e == 0 ? consts[CH_INTERNAL + r - 4] : 0ULL;
+    else if (r < CH_ROUNDS)
+      v = consts[CH_EXT_TERM + CH_WIDTH * (r - 26) + e];
+    kt[i] = v;
+  }
 }
 
 __device__ __forceinline__ Fq3 load3(const u64 *p) {
@@ -204,12 +319,12 @@ __global__ void __launch_bounds__(RT_THREADS)
                       const u64 *pend, u64 *msgs, u64 *chals,
                       const u64 *__restrict__ consts, int tables, int n_msg,
                       int rows, int npend, int nv, int r, int weighted) {
-  __shared__ u64 k[CH_NCONST];
+  __shared__ u64 kt[CH_TABLE];
   __shared__ u64 buf[RT_MAX_PENDING + 24 * RT_MAX_MSG];
   __shared__ Fq3 w[RT_MAX_TABLES * RT_MAX_MSG];
   __shared__ u64 chal[3];
   const int tid = threadIdx.x;
-  load_consts(k, consts);
+  load_consts(kt, consts);
   for (int i = tid; i < npend; i += blockDim.x) buf[i] = pend[i];
   if (weighted) {
     for (int i = tid; i < tables * n_msg; i += blockDim.x) {
@@ -251,27 +366,28 @@ __global__ void __launch_bounds__(RT_THREADS)
   if (tid < 32) {
     const int lane = tid;
     const int e = lane & 15;
+    const u64 diag = consts[CH_DIAG + e];
     u64 s = state[e];
     const int L = npend + 24 * n_msg;
-    const int nfull = L / CH_RATE;
-    const int rem = L % CH_RATE;
-    for (int c = 0; c < nfull; ++c) {
-      if (e < CH_RATE) s = buf[CH_RATE * c + e];
-      s = permute16(s, k, lane);
-    }
-    if (rem) {
-      if (e < rem) s = buf[CH_RATE * nfull + e];
-      s = permute16(s, k, lane);
-    }
-    // else the last chunk's duplex refilled the output buffer: the sample
-    // pops without another permutation
-    const u64 c0 = __shfl_sync(CH_FULL, s, 11);
-    const u64 c1 = __shfl_sync(CH_FULL, s, 10);
-    const u64 c2 = __shfl_sync(CH_FULL, s, 9);
-    const u64 ce = e % 3 == 0 ? c0 : (e % 3 == 1 ? c1 : c2);
-    for (int h = 0; h < 2; ++h) {
-      if (e < CH_RATE) s = ce;
-      s = permute16(s, k, lane);
+    // the absorbs: full chunks, then the rest (none when L % 12 == 0: the
+    // last chunk's duplex refilled the output buffer, so the sample pops
+    // without another permutation); then two chunks of the tiled
+    // challenge.  One loop, so the permutation's code is one copy.
+    const int nabs = (L + CH_RATE - 1) / CH_RATE;
+    u64 c0 = 0, c1 = 0, c2 = 0, ce = 0;
+    for (int c = 0; c < nabs + 2; ++c) {
+      if (c == nabs) {                  // the sample, warp-uniform
+        c0 = __shfl_sync(CH_FULL, s, 11);
+        c1 = __shfl_sync(CH_FULL, s, 10);
+        c2 = __shfl_sync(CH_FULL, s, 9);
+        ce = e % 3 == 0 ? c0 : (e % 3 == 1 ? c1 : c2);
+      }
+      if (c < nabs) {
+        if (e < min(CH_RATE, L - CH_RATE * c)) s = buf[CH_RATE * c + e];
+      } else if (e < CH_RATE) {
+        s = ce;
+      }
+      s = permute16(s, kt, diag, lane);
     }
     if (lane < CH_WIDTH) state[lane] = s;
     if (lane == 0) {
@@ -293,12 +409,13 @@ __global__ void __launch_bounds__(RT_THREADS)
 // n permutations of one state (16,), in place, by one warp.
 __global__ void __launch_bounds__(32)
     perm16_chain_kernel(u64 *state, const u64 *__restrict__ consts, int n) {
-  __shared__ u64 k[CH_NCONST];
-  load_consts(k, consts);
+  __shared__ u64 kt[CH_TABLE];
+  load_consts(kt, consts);
   __syncthreads();
   const int lane = threadIdx.x;
+  const u64 diag = consts[CH_DIAG + (lane & 15)];
   u64 s = state[lane & 15];
-  for (int i = 0; i < n; ++i) s = permute16(s, k, lane);
+  for (int i = 0; i < n; ++i) s = permute16(s, kt, diag, lane);
   if (lane < CH_WIDTH) state[lane] = s;
 }
 

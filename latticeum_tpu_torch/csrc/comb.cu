@@ -158,16 +158,20 @@ __device__ __forceinline__ void fold_body(const u64 *__restrict__ X,
   store_partials<NPTS>(acc, partial, slot);
 }
 
-// Lin comb: acc[t] = Tc(x) * sum_i sign_i prod_{j in S_i} f_t[j].  The
+// Lin comb: acc[t] = Tc(x) * sum_i c_i prod_{j in S_i} f_t[j].  The
 // multisets come as CSR (set_off, set_idx); every row is in some multiset
 // (checked by the wrapper), so the round-r fold writes every row of F.
-template <int NPTS, bool FOLD>
+// The constants c_i are +-1 signs (set_sign, RING false: the zkVM's CCS),
+// or rings (set_c, RING true: (nsets, 24) slot-major values, one Fq3
+// multiply a multiset where the signed form adds or subtracts).
+template <int NPTS, bool FOLD, bool RING>
 __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
                                          u64 *__restrict__ F,
                                          const u64 *__restrict__ Tc,
                                          const int *__restrict__ set_off,
                                          const int *__restrict__ set_idx,
                                          const int *__restrict__ set_sign,
+                                         const u64 *__restrict__ set_c,
                                          int nsets, u64 *__restrict__ partial,
                                          long long q, Fq3 r) {
   const int slot = blockIdx.y;
@@ -195,7 +199,13 @@ __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
           f = fq3_add(f, step);
         }
       }
-      if (set_sign[i] > 0) {
+      if (RING) {
+        const u64 *c = set_c + (long long)i * 24 + 3 * slot;
+        const Fq3 ci = Fq3{c[0], c[1], c[2]};
+#pragma unroll
+        for (int t = 0; t < NPTS; ++t)
+          acc[t] = fq3_add(acc[t], fq3_mul(prod[t], ci));
+      } else if (set_sign[i] > 0) {
 #pragma unroll
         for (int t = 0; t < NPTS; ++t) acc[t] = fq3_add(acc[t], prod[t]);
       } else {
@@ -231,28 +241,30 @@ __global__ void __launch_bounds__(BLOCK)
                         Fq3{r3[0], r3[1], r3[2]}, b_small);
 }
 
-template <int NPTS>
+template <int NPTS, bool RING>
 __global__ void __launch_bounds__(BLOCK)
     lin_round0_kernel(const u64 *__restrict__ X, const u64 *__restrict__ Tc,
                       const int *__restrict__ set_off,
                       const int *__restrict__ set_idx,
-                      const int *__restrict__ set_sign, int nsets,
+                      const int *__restrict__ set_sign,
+                      const u64 *__restrict__ set_c, int nsets,
                       u64 *__restrict__ partial, long long q) {
-  lin_body<NPTS, false>(X, nullptr, Tc, set_off, set_idx, set_sign, nsets,
-                        partial, q, fq3_zero());
+  lin_body<NPTS, false, RING>(X, nullptr, Tc, set_off, set_idx, set_sign,
+                              set_c, nsets, partial, q, fq3_zero());
 }
 
-template <int NPTS>
+template <int NPTS, bool RING>
 __global__ void __launch_bounds__(BLOCK)
     lin_roundr_kernel(const u64 *__restrict__ X, u64 *__restrict__ F,
                       const u64 *__restrict__ Tc,
                       const int *__restrict__ set_off,
                       const int *__restrict__ set_idx,
-                      const int *__restrict__ set_sign, int nsets,
+                      const int *__restrict__ set_sign,
+                      const u64 *__restrict__ set_c, int nsets,
                       u64 *__restrict__ partial, long long q,
                       const u64 *__restrict__ r3) {
-  lin_body<NPTS, true>(X, F, Tc, set_off, set_idx, set_sign, nsets, partial,
-                       q, Fq3{r3[0], r3[1], r3[2]});
+  lin_body<NPTS, true, RING>(X, F, Tc, set_off, set_idx, set_sign, set_c,
+                             nsets, partial, q, Fq3{r3[0], r3[1], r3[2]});
 }
 
 // Second pass: out[k] = sum over blocks of partial[b][k], k < nvals.
@@ -338,14 +350,20 @@ int lt_fold_roundr(const u64 *X, u64 *F, const u64 *Tb, const u64 *mu,
   return (int)reduce_partials(partial, out, comb_grid(q).x, npts, stream);
 }
 
+// The lin entry points take the constants as signs (set_sign, set_c null)
+// or as rings (set_c, set_sign null).
 int lt_lin_round0(const u64 *X, const u64 *Tc, const int *set_off,
-                  const int *set_idx, const int *set_sign, int nsets,
-                  u64 *partial, u64 *out, long long q, int npts,
+                  const int *set_idx, const int *set_sign, const u64 *set_c,
+                  int nsets, u64 *partial, u64 *out, long long q, int npts,
                   cudaStream_t stream) {
 #define LT_CASE(N)                                                           \
   case N:                                                                    \
-    lin_round0_kernel<N><<<comb_grid(q), BLOCK, 0, stream>>>(                \
-        X, Tc, set_off, set_idx, set_sign, nsets, partial, q);               \
+    if (set_c)                                                               \
+      lin_round0_kernel<N, true><<<comb_grid(q), BLOCK, 0, stream>>>(        \
+          X, Tc, set_off, set_idx, set_sign, set_c, nsets, partial, q);      \
+    else                                                                     \
+      lin_round0_kernel<N, false><<<comb_grid(q), BLOCK, 0, stream>>>(       \
+          X, Tc, set_off, set_idx, set_sign, set_c, nsets, partial, q);      \
     break;
   LT_DISPATCH_LIN(npts, LT_CASE)
 #undef LT_CASE
@@ -355,13 +373,19 @@ int lt_lin_round0(const u64 *X, const u64 *Tc, const int *set_off,
 }
 
 int lt_lin_roundr(const u64 *X, u64 *F, const u64 *Tc, const int *set_off,
-                  const int *set_idx, const int *set_sign, int nsets,
-                  u64 *partial, u64 *out, long long q, const u64 *r3,
-                  int npts, cudaStream_t stream) {
+                  const int *set_idx, const int *set_sign, const u64 *set_c,
+                  int nsets, u64 *partial, u64 *out, long long q,
+                  const u64 *r3, int npts, cudaStream_t stream) {
 #define LT_CASE(N)                                                           \
   case N:                                                                    \
-    lin_roundr_kernel<N><<<comb_grid(q), BLOCK, 0, stream>>>(                \
-        X, F, Tc, set_off, set_idx, set_sign, nsets, partial, q, r3);        \
+    if (set_c)                                                               \
+      lin_roundr_kernel<N, true><<<comb_grid(q), BLOCK, 0, stream>>>(        \
+          X, F, Tc, set_off, set_idx, set_sign, set_c, nsets, partial, q,    \
+          r3);                                                               \
+    else                                                                     \
+      lin_roundr_kernel<N, false><<<comb_grid(q), BLOCK, 0, stream>>>(       \
+          X, F, Tc, set_off, set_idx, set_sign, set_c, nsets, partial, q,    \
+          r3);                                                               \
     break;
   LT_DISPATCH_LIN(npts, LT_CASE)
 #undef LT_CASE

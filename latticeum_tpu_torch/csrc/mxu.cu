@@ -19,13 +19,27 @@
 //   neighbouring columns, so every byte row is coalesced.  Columns past the
 //   data get zero digits, and the last grid row zeroes the padding plane
 //   rows.  Bound: bytes (8 read, 9 written per value).
-// plane_recombine_kernel: one thread per output (row j, column k, slot s,
-//   component c).  It sums its 3 component pairs x 81 plane products into
-//   17 exact int64 sums per digit weight 2^{8e}, e = dA + dB (and 17 more
-//   where the nonresidue W = 2^40 applies; |sum| < 2^37), then evaluates
-//   both in base 256 by Horner's rule mod p and adds the result to the
-//   running sum of the earlier chunks.  Bound: bytes (the int32 products,
-//   read once); its arithmetic is 34 field multiply-adds per output.
+// plane_recombine_kernel: one chunk's int32 plane products O (8, ra, rb)
+//   into out (t, kb, 24).  Output (j, k, slot, comp) sums 3 component
+//   pairs (i, i2) x 81 plane products O[slot, 27 j + 9 i + dA,
+//   27 k + 9 i2 + dB] into exact int64 sums per digit weight 2^{8(dA+dB)}
+//   (|sum| < 2^36), evaluates them in base 256 by Horner's rule mod p
+//   (times the nonresidue W = 2^40 where i + i2 >= 3) and adds the result
+//   to the running sum of the earlier chunks.  Bound: bytes (the int32
+//   products read once, out read and written); its arithmetic is a few
+//   field operations per output.
+//   Every product lands in exactly one output, so nothing is reused: what
+//   matters is that each is read in a coalesced load.  A block takes one
+//   (slot, j) and a group of up to RC_KG = 8 ring columns k: it copies the
+//   27 plane rows of j over the group's 27 kg columns (27 rows of up to 864
+//   contiguous bytes, a thread per column) into shared memory, then a
+//   thread per (k, comp, i) sums its 81 products and runs its Horner chain,
+//   and a thread per (k, comp) adds the three into out.  The same kernel
+//   serves the wide shapes (kb = 15, 30: 2 or 4 blocks per (slot, j)) and
+//   the skinny ones (kb = 1: one block per (slot, j) with a 27 x 27 tile).
+//   The first design took one thread per output; neighbouring lanes read
+//   products of 8 slots 11 MB apart and 3 column blocks, about 24 sectors
+//   of 32 bytes per load for 4 bytes of each.
 
 #include <cuda_runtime.h>
 
@@ -37,6 +51,8 @@ using namespace lt;
 
 #define BLOCK 256
 #define NPLANES 9
+#define RC_THREADS 256  // at least 27 RC_KG (a tile row) and 9 RC_KG
+#define RC_KG 8
 
 namespace {
 
@@ -84,42 +100,52 @@ __device__ __forceinline__ u64 signed_to_field(long long v) {
   return v >= 0 ? (u64)v : P - (u64)(-v);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// a * 256 mod p: the shift's high byte times 2^64, reduced.
+__device__ __forceinline__ u64 gl_mul_256(u64 a) {
+  return gl_reduce128(a << 8, a >> 56);
+}
+
+__global__ void __launch_bounds__(RC_THREADS)
     plane_recombine_kernel(const int *__restrict__ O, u64 *__restrict__ out,
-                           long long t, long long kb, long long ra,
-                           long long rb) {
-  const long long idx = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (idx >= t * kb * 24) return;
-  const int pos = (int)(idx % 24);
-  const long long k = idx / 24 % kb;
-  const long long j = idx / 24 / kb;
-  const int s = pos / 3, comp = pos % 3;
-  const int *Os = O + (long long)s * ra * rb;
-  long long s1[2 * NPLANES - 1], sw[2 * NPLANES - 1];
+                           int kb, long long ra, long long rb) {
+  __shared__ int tile[3 * NPLANES * 3 * NPLANES * RC_KG];
+  __shared__ u64 part[9 * RC_KG];
+  const int s = blockIdx.z, j = blockIdx.y, k0 = blockIdx.x * RC_KG;
+  const int kg = min(RC_KG, kb - k0);
+  const int w = 3 * NPLANES * kg;  // tile columns
+  const int tid = threadIdx.x;
+  const int *src = O + ((long long)s * ra + 3LL * NPLANES * j) * rb +
+                   3LL * NPLANES * k0;
+  if (tid < w) {
 #pragma unroll
-  for (int e = 0; e < 2 * NPLANES - 1; ++e) s1[e] = sw[e] = 0;
+    for (int r = 0; r < 3 * NPLANES; ++r) tile[r * w + tid] = src[r * rb + tid];
+  }
+  __syncthreads();
+  if (tid < 9 * kg) {  // (k, comp, i): the pair (i, i2) lands in comp
+    const int k = tid / 9, comp = tid / 3 % 3, i = tid % 3;
+    const int i2 = (comp - i + 3) % 3;
+    const int *blk = tile + NPLANES * i * w + 3 * NPLANES * k + NPLANES * i2;
+    long long d[2 * NPLANES - 1];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const int i2 = (comp - i + 3) % 3;  // the pair (i, i2) lands in comp
-    const bool w = i + i2 >= 3;         // Y^3 = W
-    const int *blk = Os + ((3 * j + i) * NPLANES) * rb + (3 * k + i2) * NPLANES;
+    for (int e = 0; e < 2 * NPLANES - 1; ++e) d[e] = 0;
 #pragma unroll
     for (int a = 0; a < NPLANES; ++a) {
 #pragma unroll
-      for (int b = 0; b < NPLANES; ++b) {
-        const long long v = blk[a * rb + b];
-        s1[a + b] += w ? 0 : v;
-        sw[a + b] += w ? v : 0;
-      }
+      for (int b = 0; b < NPLANES; ++b) d[a + b] += blk[a * w + b];
     }
-  }
-  u64 h1 = 0ULL, hw = 0ULL;
+    u64 h = 0ULL;
 #pragma unroll
-  for (int e = 2 * NPLANES - 2; e >= 0; --e) {
-    h1 = gl_add(gl_mul(h1, 256ULL), signed_to_field(s1[e]));
-    hw = gl_add(gl_mul(hw, 256ULL), signed_to_field(sw[e]));
+    for (int e = 2 * NPLANES - 2; e >= 0; --e)
+      h = gl_add(gl_mul_256(h), signed_to_field(d[e]));
+    part[tid] = i + i2 >= 3 ? gl_mul_w(h) : h;  // Y^3 = W
   }
-  out[idx] = gl_add(out[idx], gl_add(h1, gl_mul_w(hw)));
+  __syncthreads();
+  if (tid < 3 * kg) {  // (k, comp)
+    const int k = tid / 3, comp = tid % 3;
+    u64 *o = out + ((long long)j * kb + k0 + k) * 24 + 3 * s + comp;
+    *o = gl_add(*o, gl_add(gl_add(part[3 * tid], part[3 * tid + 1]),
+                           part[3 * tid + 2]));
+  }
 }
 
 }  // namespace
@@ -140,9 +166,12 @@ int lt_digit_split(const u64 *x, int8_t *planes, int rows, int n,
 
 int lt_plane_recombine(const int *O, u64 *out, long long t, long long kb,
                        long long ra, long long rb, cudaStream_t stream) {
-  const long long total = t * kb * 24;
-  plane_recombine_kernel<<<(unsigned)((total + BLOCK - 1) / BLOCK), BLOCK, 0,
-                           stream>>>(O, out, t, kb, ra, rb);
+  if (t < 1 || t > 65535 || kb < 1 || kb > (1LL << 30) ||
+      ra < 3 * NPLANES * t || rb < 3 * NPLANES * kb)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((kb + RC_KG - 1) / RC_KG), (unsigned)t, 8);
+  plane_recombine_kernel<<<grid, RC_THREADS, 0, stream>>>(O, out, (int)kb,
+                                                          ra, rb);
   return (int)cudaGetLastError();
 }
 

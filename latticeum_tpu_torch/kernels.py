@@ -102,8 +102,8 @@ def lib():
     sigs = {
         "lt_fold_round0": [vp] * 5 + [i32, i64, i32, vp],
         "lt_fold_roundr": [vp] * 6 + [i32, i64, vp, i32, vp],
-        "lt_lin_round0": [vp] * 5 + [i32, vp, vp, i64, i32, vp],
-        "lt_lin_roundr": [vp] * 6 + [i32, vp, vp, i64, vp, i32, vp],
+        "lt_lin_round0": [vp] * 6 + [i32, vp, vp, i64, i32, vp],
+        "lt_lin_roundr": [vp] * 7 + [i32, vp, vp, i64, vp, i32, vp],
         "lt_perm8": [vp] * 3 + [i64, i32, vp],
         "lt_sponge8": [vp] * 3 + [i64, i64, i32, vp],
         "lt_digit_split": [vp] * 2 + [i32] * 2 + [i64] + [i32] * 5 + [vp],

@@ -2,7 +2,7 @@
 one call.
 
     python3 latticeum_tpu_torch/step_timing.py [--root DIR] [--steps N]
-        [--profile] [--label NAME] [--combs]
+        [--profile] [--label NAME] [--combs | --tails]
 
 Proves ``--steps`` steps (default 3) of ``xorshift_guest(64)`` on
 ``new_vm_1mb()`` with ``TorchZkVmProver(default_params(), device="cuda")``
@@ -15,7 +15,13 @@ time of every lin and fold sum-check (``sumcheck_s``: each call of
 ``zkvm/accel_rounds.py``'s two runners, the card synchronized before and
 after it) and the peak device memory.  ``--combs`` times the four comb
 kernels of that checkout at the production round shapes instead (its
-``chip_smoke.kernel_checks``, CUDA events) and prints their ms.  With
+``chip_smoke.kernel_checks``, CUDA events) and prints their ms; ``--tails``
+times that checkout's ``round_tail`` at the production fold and lin round
+shapes and unweighted, ``perm16_chain`` at each one's permutation count
+(CUDA graphs of 50) and ``plane_recombine`` at the four production shapes
+of the claims (CUDA events over 3 calls, as ``chip_smoke.py`` times it
+since it was written, and CUDA graphs of 20), on inputs made from fixed
+seeds, and prints their ms.  With
 ``--profile`` the lin and fold sum-checks of the third-to-last step's fold
 run under ``torch.profiler`` (``sumcheck_busy``: the summed durations of
 the kernels each one launched, and their number, beside the unprofiled
@@ -46,7 +52,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--label", default="")
-    ap.add_argument("--combs", action="store_true")
+    modes = ap.add_mutually_exclusive_group()
+    modes.add_argument("--combs", action="store_true")
+    modes.add_argument("--tails", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,6 +74,8 @@ def main(argv=None):
     prover = TorchZkVmProver(default_params(), device="cuda")
     if args.combs:
         return comb_times(args, card, prover, torch)
+    if args.tails:
+        return tail_times(args, card, prover, torch)
     sumchecks = {"lin": [], "fold": []}
     inner, folds, report = prover.fold, [], {}
     for kind in sumchecks:
@@ -176,6 +186,68 @@ def comb_times(args, card, prover, torch):
     print(json.dumps({"label": args.label, "root": args.root, "card": card,
                       "comb_ms": {r["name"]: r["ms"] for r in records}}),
           flush=True)
+    return 0
+
+
+def tail_times(args, card, prover, torch):
+    """round_tail, perm16_chain and plane_recombine of the checkout at
+    --root, timed by its chip_smoke.graph_ms and cuda_ms on inputs made
+    from fixed seeds (the same whatever the checkout)."""
+    import numpy as np
+
+    import chip_smoke
+    from latticeum_tpu_torch.crypto import challenger
+    from latticeum_tpu_torch.field import goldilocks as gl, mxu
+    from latticeum_tpu_torch.host.nifs.structs import TAU
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape):
+        return torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, shape, dtype=np.uint64))).to(dev)
+
+    ccs, p = prover.ccs, prover.params
+    deg_l, npts_h = ccs.d + 1, 2 * p.B_SMALL
+    lags = {"fold": gl.from_int(accel_rounds.fold_lagrange(
+                npts_h, npts_h + 1), dev),
+            "lin": gl.from_int([accel_rounds._lagrange_ext_consts(
+                deg_l, deg_l + 1)], dev),
+            "unweighted": None}
+    n_msgs = {"fold": npts_h + 1, "lin": deg_l + 1, "unweighted": deg_l + 1}
+    nv, pending = 4, 3                  # every round after the first
+    ms = {}
+    for kind, lag in lags.items():
+        n_msg = n_msgs[kind]
+        tables = 0 if lag is None else lag.shape[0]
+        rows = n_msg if lag is None else lag.shape[2]
+        sums, state, pend, st = rnd(rows, 24), rnd(16), rnd(pending), rnd(16)
+        points = rnd(tables, nv, 3) if tables else None
+        E = rnd(tables, 3) if tables else None
+        msgs = torch.zeros((nv, n_msg, 24), dtype=torch.int64, device=dev)
+        chals = torch.zeros((nv, 3), dtype=torch.int64, device=dev)
+        perms = challenger.permutations(pending + 24 * n_msg)
+        ms[f"round_tail {kind}"] = chip_smoke.graph_ms(
+            torch, lambda: challenger.round_tail(
+                sums, lag, points, E, state, pend, msgs, chals, 2,
+                weighted=lag is not None), 50)
+        ms[f"perm16_chain {perms}"] = chip_smoke.graph_ms(
+            torch, lambda: challenger.perm16_chain(st, perms), 50)
+    t, K = ccs.t, p.K
+    for label, ta, tb in (("dec u", t, K), ("fold eta", t, 2 * K),
+                          ("dec v", K * TAU, 1), ("lin v", TAU, 1)):
+        ra, rb = mxu.plane_shape(ta, 1)[0], mxu.plane_shape(tb, 1)[0]
+        O = torch.randint(-(1 << 30), 1 << 30, (8, ra, rb), generator=gen,
+                          dtype=torch.int32, device=dev)
+        acc = torch.zeros((ta, tb, 24), dtype=torch.int64, device=dev)
+        ms[f"plane_recombine {label} {ta}x{tb} events"] = chip_smoke.cuda_ms(
+            torch, lambda: mxu.plane_recombine(O, acc), 3)
+        ms[f"plane_recombine {label} {ta}x{tb} graph"] = chip_smoke.graph_ms(
+            torch, lambda: mxu.plane_recombine(O, acc), 20)
+        del O
+    print(json.dumps({"label": args.label, "root": args.root, "card": card,
+                      "tail_ms": ms}), flush=True)
     return 0
 
 

@@ -31,7 +31,7 @@ from . import accel_rounds, claims, comb
 def lin_c_signs(c_rings):
     """If every lin comb constant is the +-1 scalar ring the zkvm builder
     emits ([s, 0, 0] x 8 slots with s in {1, p-1}), return the sign tuple
-    for the lin comb kernels; else None."""
+    for the lin comb kernels; else None (the kernels take the rings)."""
     signs = []
     for c in c_rings:
         vals = [int(v) % gl.P for v in c]
@@ -114,7 +114,8 @@ class TorchNifs:
         self._cap_pow2 = min(1 << (self._cap - 1).bit_length(), ccs.m)
         signs = lin_c_signs(ccs.c)
         self._lin_sets = (comb.lin_sets(ccs.S, signs, ccs.t, dev)
-                          if signs is not None else None)
+                          if signs is not None else
+                          comb.lin_sets_general(ccs.S, ccs.c, ccs.t, dev))
         brev_cap = _brev(self._cap_pow2)
         self._lin_row_pos = brev_cap.to(dev)[engine.rows]
         self._brev_cap = brev_cap.to(dev)
@@ -194,8 +195,6 @@ class TorchNifs:
                            + [H.ntt_from_u64(1)])
         z = torch.cat([head, wit.w_ccs])
         g = self.lin_g_t(z, beta_s)
-        if self._lin_sets is None:
-            raise ValueError("lin comb kernels need every c_i to be +-1")
         proof_sc, chals, final = accel_rounds.run_lin_rounds_factored(
             transcript, g, ccs.s, ccs.d + 1, self._lin_sets, beta_s, log=log)
         del g

@@ -212,8 +212,7 @@ def _lin_reconstruct(mz, nv, r, degree, sets, tab, scale, state, pend0,
         for _t in range(degree):
             pts.append(gl.add(pts[-1], step))
         f = rq._as_slots_t(torch.stack(pts, dim=1))   # (rows, deg+1, 8, half)
-        q = comb.signed_multiset_sum(tuple(c[:t_rows] for c in f),
-                                     sets.groups)
+        q = comb.multiset_sum(tuple(c[:t_rows] for c in f), sets.groups)
         g = fq3.mul(q, tuple(c[t_rows] for c in f))
         msg = torch.stack([gl.sum_axis(c, -1) for c in g],
                           dim=-1).reshape(-1, 24)
@@ -230,10 +229,11 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
     """Eq-factored linearization sum-check, chained on the device.
 
     g_t: (t+1, 24, n0) t-layout stack, eq row last (n0 <= 2^nv, a power of
-    two); sets: the multisets with their +-1 signs (comb.lin_sets); beta_s:
-    this proof's betas.  Each round folds the previous challenge into the
-    Mz rows and evaluates q = sum_i c_i prod Mz_j at deg(q)+1 = degree
-    points, weighted by the pair-summed eq table (lin_round0 / lin_roundr);
+    two); sets: the multisets with their constants (comb.lin_sets for +-1
+    signs, comb.lin_sets_general for any rings); beta_s: this proof's
+    betas.  Each round folds the previous challenge into the Mz rows and
+    evaluates q = sum_i c_i prod Mz_j at deg(q)+1 = degree points, weighted
+    by the pair-summed eq table (lin_round0 / lin_roundr);
     the round tail extends them to the degree+1 message points and weights
     them by E * eqf(beta_r, t); the eq table advances by pair sums only.
     A truncated stack finishes with the reconstruction rounds over the eq

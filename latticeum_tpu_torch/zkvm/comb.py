@@ -18,10 +18,15 @@ minor axis, so a sum-check round pairs column x with column x + half.
   fresh F (rows, 24, 2q); returns (S over all points of F, F).  r3 is the
   challenge as a (3,) tensor on X's device (a row of the sum-check's
   challenges, which never leave the device), read by the kernel there.
-* ``lin_round0(X, Tc, sets, npts)``: S[t] = sum_x Tc(x) * sum_i sign_i
+* ``lin_round0(X, Tc, sets, npts)``: S[t] = sum_x Tc(x) * sum_i c_i
   prod_{j in S_i} f_t[j], t < npts, over X (rows, 24, 2q).
 * ``lin_roundr(X, Tc, r3, sets, npts)``: fold at r as above, then the lin
   sums over F; returns (S, F).
+
+The lin constants c_i are +-1 signs (``lin_sets``: the zkVM's own CCS, as
+the Pallas lin kernels take them) or any rings (``lin_sets_general``):
+then the kernels multiply each multiset's product by c_i where they add
+or subtract it for a sign.
 
 A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (and counts the launch) or raises.  There is no fallback.
@@ -46,23 +51,25 @@ _TWIN_COLS = 8192    # column chunk of the twins (bounds their temporaries)
 
 @dataclass
 class LinSets:
-    """The lin comb's static multisets S_i and +-1 signs c_i: on the host,
-    as int32 device arrays (CSR offsets) for the kernel, and grouped by size
-    for the plain-torch products (``groups``, see ``lin_groups``)."""
+    """The lin comb's static multisets S_i and constants c_i: on the host,
+    as int32 device arrays (CSR offsets off, idx) for the kernels, and
+    grouped by size for the plain-torch products (``groups``, see
+    ``lin_groups``).  The constants are +-1 ``signs`` (host) and ``sgn``
+    (int32, device), or rings: ``rings`` (nsets, 24) on the device, with
+    signs and sgn None."""
     S: tuple
     signs: tuple
     rows: int
     off: torch.Tensor
     idx: torch.Tensor
     sgn: torch.Tensor
+    rings: torch.Tensor
     groups: list
 
 
-def lin_sets(S, signs, rows, device):
+def _csr(S, rows, device):
+    """The multisets as a tuple of tuples and their int32 CSR arrays."""
     S = tuple(tuple(int(j) for j in s) for s in S)
-    signs = tuple(int(s) for s in signs)
-    if len(S) != len(signs) or any(s not in (1, -1) for s in signs):
-        raise ValueError("lin comb needs one +-1 sign per multiset")
     if any(len(s) == 0 for s in S):
         raise ValueError("lin comb multisets must be non-empty")
     if sorted({j for s in S for j in s}) != list(range(rows)):
@@ -72,11 +79,33 @@ def lin_sets(S, signs, rows, device):
     for s in S:
         off.append(off[-1] + len(s))
     flat = [j for s in S for j in s]
+    return S, _i32(off, device), _i32(flat, device)
 
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=device)
-    return LinSets(S, signs, rows, i32(off), i32(flat), i32(list(signs)),
+
+def _i32(v, device):
+    return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+def lin_sets(S, signs, rows, device):
+    """The multisets with +-1 constants (one sign each)."""
+    signs = tuple(int(s) for s in signs)
+    if len(S) != len(signs) or any(s not in (1, -1) for s in signs):
+        raise ValueError("lin comb needs one +-1 sign per multiset")
+    S, off, idx = _csr(S, rows, device)
+    return LinSets(S, signs, rows, off, idx, _i32(list(signs), device), None,
                    lin_groups(S, signs, device))
+
+
+def lin_sets_general(S, c_rings, rows, device):
+    """The multisets with ring constants c_i (24 values each, any field
+    elements, slot-major)."""
+    if len(S) != len(c_rings) or any(len(c) != 24 for c in c_rings):
+        raise ValueError("lin comb needs one 24-value ring per multiset")
+    S, off, idx = _csr(S, rows, device)
+    c_rings = tuple(tuple(int(v) for v in c) for c in c_rings)
+    return LinSets(S, None, rows, off, idx, None,
+                   gl.from_int([list(c) for c in c_rings], device),
+                   lin_groups(S, c_rings, device))
 
 
 # -- shared pieces of the twins ----------------------------------------------
@@ -121,28 +150,42 @@ def _fold_sums_twin(X, Tb, mu, b_small, pt0):
     return S
 
 
-def lin_groups(S, signs, device):
+def lin_groups(S, consts, device):
     """The multisets grouped by size, one batched product chain per size:
-    [(sign > 0 mask (g,), row ids (g, size))] as tensors on `device`."""
+    [(weight, row ids (g, size))] as tensors on `device`.  `consts` holds
+    one +-1 sign or one ring (24 values) per multiset; the weight is the
+    sign > 0 mask (g,), or the rings as an Fq3 triple of (g, 8) slots."""
     groups = {}
     for i, s in enumerate(S):
         groups.setdefault(len(s), []).append(i)
-    return [(torch.tensor([signs[i] > 0 for i in ids], device=device),
-             torch.tensor([S[i] for i in ids], device=device))
-            for _, ids in sorted(groups.items())]
+    out = []
+    for _, ids in sorted(groups.items()):
+        if isinstance(consts[ids[0]], int):
+            weight = torch.tensor([consts[i] > 0 for i in ids], device=device)
+        else:
+            weight = rq._as_slots(gl.from_int([list(consts[i]) for i in ids],
+                                              device))
+        out.append((weight, torch.tensor([S[i] for i in ids], device=device)))
+    return out
 
 
-def signed_multiset_sum(f, groups):
-    """sum_i sign_i prod_{j in S_i} f[j] for an Fq3 triple f of (rows, ...)
-    tensors -> an Fq3 triple of (...) tensors."""
+def multiset_sum(f, groups):
+    """sum_i c_i prod_{j in S_i} f[j] for an Fq3 triple f of (rows, ..., 8,
+    n) tensors (the slots second to last) -> an Fq3 triple of (..., 8, n)
+    tensors; c_i a sign or a ring, as ``lin_groups`` holds it."""
     total = None
-    for pos, jidx in groups:
+    for weight, jidx in groups:
         prod = tuple(c[jidx[:, 0]] for c in f)               # (g, ...)
         for k in range(1, jidx.shape[1]):
             prod = fq3.mul(prod, tuple(c[jidx[:, k]] for c in f))
-        mask = pos.reshape((-1,) + (1,) * (prod[0].dim() - 1))
-        part = tuple(gl.sum_axis(torch.where(mask, p, gl.neg(p)), 0)
-                     for p in prod)
+        if isinstance(weight, tuple):
+            lead = (-1,) + (1,) * (prod[0].dim() - 3)
+            part = tuple(gl.sum_axis(p, 0) for p in fq3.mul(
+                prod, tuple(w.reshape(lead + (8, 1)) for w in weight)))
+        else:
+            mask = weight.reshape((-1,) + (1,) * (prod[0].dim() - 1))
+            part = tuple(gl.sum_axis(torch.where(mask, p, gl.neg(p)), 0)
+                         for p in prod)
         total = part if total is None else fq3.add(total, part)
     return total
 
@@ -158,7 +201,7 @@ def _lin_sums_twin(X, Tc, sets, npts):
         step = fq3.sub(rq._as_slots_t(X[..., q + c0:q + c1]), f)
         tc = rq._as_slots_t(Tc[..., c0:c1])
         for t in range(npts):
-            qv = fq3.mul(signed_multiset_sum(f, groups), tc)
+            qv = fq3.mul(multiset_sum(f, groups), tc)
             S[t] = gl.add(S[t], _slot_major(
                 tuple(gl.sum_axis(e, -1) for e in qv)))
             f = fq3.add(f, step)
@@ -240,19 +283,28 @@ def _lin_check(X, Tc, sets, npts, width_mult):
     _check("Tc", Tc, (24, q))
     if sets.rows != rows:
         raise ValueError(f"multisets index {sets.rows} rows, X has {rows}")
+    if (sets.sgn is None) == (sets.rings is None):
+        raise ValueError("lin sets need either +-1 signs or ring constants")
     if not 1 <= npts <= MAX_LIN_PTS:
         raise ValueError(f"npts {npts} outside 1..{MAX_LIN_PTS}")
     return rows, q
 
 
 def _sets_args(sets):
-    return [_ptr(sets.off), _ptr(sets.idx), _ptr(sets.sgn), len(sets.S)]
+    """The kernels' multiset arguments: CSR, then the signs or the rings
+    (the other a null pointer)."""
+    consts = [None if c is None else _ptr(c) for c in (sets.sgn, sets.rings)]
+    return [_ptr(sets.off), _ptr(sets.idx), *consts, len(sets.S)]
+
+
+def _sets_tensors(sets):
+    return tuple(t for t in (sets.off, sets.rings) if t is not None)
 
 
 def lin_round0(X, Tc, sets, npts):
     """Linearization round 0 (replaces pallas_comb.lin_round0_pallas)."""
     rows, q = _lin_check(X, Tc, sets, npts, 2)
-    if _route((X, Tc, sets.off)) == "cpu":
+    if _route((X, Tc) + _sets_tensors(sets)) == "cpu":
         return lin_round0_twin(X, Tc, sets, npts)
     nbx = -(-q // BLOCK)
     partial = torch.empty((nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
@@ -268,7 +320,7 @@ def lin_roundr(X, Tc, r3, sets, npts):
     pallas_comb.lin_roundr_pallas)."""
     rows, q = _lin_check(X, Tc, sets, npts, 4)
     _check("r3", r3, (3,))
-    if _route((X, Tc, sets.off, r3)) == "cpu":
+    if _route((X, Tc, r3) + _sets_tensors(sets)) == "cpu":
         return lin_roundr_twin(X, Tc, r3, sets, npts)
     nbx = -(-q // BLOCK)
     F = torch.empty((rows, 24, 2 * q), dtype=gl.DTYPE, device=X.device)

@@ -93,7 +93,8 @@ def ref_fold(X, r3):
 
 
 def lin_oracle(X, Tc, S, signs, npts):
-    """Python-int q(t) = sum_i sign_i prod_j f_t[j], Tc-weighted."""
+    """Python-int q(t) = sum_i c_i prod_j f_t[j], Tc-weighted; c_i a +-1
+    sign or a ring (24 slot-major values)."""
     rows, _, m2 = X.shape
     q = m2 // 2
     out = [[0] * 24 for _ in range(npts)]
@@ -111,8 +112,12 @@ def lin_oracle(X, Tc, S, signs, npts):
                     prod = (1, 0, 0)
                     for j in S_i:
                         prod = H.fq3_mul(prod, f[j])
-                    acc = (H.fq3_add(acc, prod) if sg > 0
-                           else H.fq3_sub(acc, prod))
+                    if isinstance(sg, int):
+                        acc = (H.fq3_add(acc, prod) if sg > 0
+                               else H.fq3_sub(acc, prod))
+                    else:
+                        acc = H.fq3_add(acc, H.fq3_mul(prod, tuple(
+                            int(sg[3 * s + c]) for c in range(3))))
                 tc = tuple(int(Tc[3 * s + c, x]) for c in range(3))
                 w = H.fq3_mul(acc, tc)
                 for c in range(3):
@@ -201,6 +206,55 @@ def test_lin_twin_matches_python_int_oracle():
     assert got == lin_oracle(X, Tc, S, signs, 3)
 
 
+def rings(rng, n):
+    return [[int(v) for v in rnd(rng, 24)] for _ in range(n)]
+
+
+def test_lin_twin_with_ring_constants_matches_python_int_oracle():
+    S, _ = SETS
+    rng = np.random.default_rng(41)
+    X, Tc, c = rnd(rng, 6, 24, 4), rnd(rng, 24, 2), rings(rng, len(S))
+    ls = comb.lin_sets_general(S, c, 6, "cpu")
+    got = gl.to_int_lists(comb.lin_round0(tt(X), tt(Tc), ls, 3))
+    assert got == lin_oracle(X, Tc, S, c, 3)
+
+
+@pytest.mark.parametrize("sets,npts", [(SETS, 4), (SETS7, 8)])
+def test_lin_ring_constants_of_signs_match_the_signed_twins(sets, npts):
+    """Rings that are the +-1 scalars give the signed sums, in round 0 and
+    round r."""
+    S, signs = sets
+    rows = max(j for s in S for j in s) + 1
+    ring = {1: [1, 0, 0] * 8, -1: [P - 1, 0, 0] * 8}
+    signed = comb.lin_sets(S, signs, rows, "cpu")
+    general = comb.lin_sets_general(S, [ring[g] for g in signs], rows, "cpu")
+    rng = np.random.default_rng(42 + npts)
+    q = 16
+    X, Tc = tt(rnd(rng, rows, 24, 4 * q)), tt(rnd(rng, 24, q))
+    r3 = tt(rnd(rng, 3))
+    X0 = X[..., :2 * q].contiguous()
+    assert torch.equal(comb.lin_round0(X0, Tc, signed, npts),
+                       comb.lin_round0(X0, Tc, general, npts))
+    for a, b in zip(comb.lin_roundr(X, Tc, r3, signed, npts),
+                    comb.lin_roundr(X, Tc, r3, general, npts)):
+        assert torch.equal(a, b)
+
+
+def test_lin_sets_general_validates_its_arguments():
+    rng = np.random.default_rng(43)
+    with pytest.raises(ValueError):
+        comb.lin_sets_general([(0,), (1,)], rings(rng, 1), 2, "cpu")
+    with pytest.raises(ValueError):
+        comb.lin_sets_general([(0,), (1,)], [[1] * 23, [1] * 24], 2, "cpu")
+    with pytest.raises(ValueError):
+        comb.lin_sets_general([(0,)], rings(rng, 1), 2, "cpu")
+    ls = comb.lin_sets_general([(0,), (1,)], rings(rng, 2), 2, "cpu")
+    ls.sgn = torch.ones(2, dtype=torch.int32)          # signs and rings both
+    X = torch.zeros((2, 24, 8), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        comb.lin_round0(X, torch.zeros((24, 4), dtype=torch.int64), ls, 2)
+
+
 def test_wrappers_validate_their_arguments():
     X = torch.zeros((3, 24, 8), dtype=torch.int64)
     mu = torch.zeros((3, 3), dtype=torch.int64)
@@ -252,12 +306,15 @@ def test_cuda_kernels_match_twins():
         for a, b in zip(comb.fold_roundr(*args), comb.fold_roundr_twin(*args)):
             assert torch.equal(a, b)
     S, signs = SETS7
-    ls = comb.lin_sets(S, signs, 9, dev)
-    for npts in (1, 8, 12):
-        X, Tc = rnd(rng, 9, 24, 1024), rnd(rng, 24, 512)
-        args = (d(X), d(Tc), ls, npts)
-        assert torch.equal(comb.lin_round0(*args), comb.lin_round0_twin(*args))
-        X = rnd(rng, 9, 24, 2048)
-        args = (d(X), d(Tc), d(rnd(rng, 3)), ls, npts)
-        for a, b in zip(comb.lin_roundr(*args), comb.lin_roundr_twin(*args)):
-            assert torch.equal(a, b)
+    for ls in (comb.lin_sets(S, signs, 9, dev),
+               comb.lin_sets_general(S, rings(rng, len(S)), 9, dev)):
+        for npts in (1, 8, 12):
+            X, Tc = rnd(rng, 9, 24, 1024), rnd(rng, 24, 512)
+            args = (d(X), d(Tc), ls, npts)
+            assert torch.equal(comb.lin_round0(*args),
+                               comb.lin_round0_twin(*args))
+            X = rnd(rng, 9, 24, 2048)
+            args = (d(X), d(Tc), d(rnd(rng, 3)), ls, npts)
+            for a, b in zip(comb.lin_roundr(*args),
+                            comb.lin_roundr_twin(*args)):
+                assert torch.equal(a, b)

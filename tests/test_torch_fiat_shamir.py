@@ -301,34 +301,36 @@ def test_two_lin_sumchecks_with_other_betas_match_host():
 
 
 @pytest.mark.cuda
-def test_cuda_round_tail_matches_twin():
+@pytest.mark.parametrize("kind", ["lin", "fold", "unweighted"])
+def test_cuda_round_tail_matches_twin(kind):
+    """round_tail on the card against its twin at every pending length
+    0 ... 11, then perm16_chain against its twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = "cuda"
     rng = np.random.default_rng(70)
     nv = 4
-    for kind in ("lin", "fold", "unweighted"):
-        case, n_msg = _tail_case(kind, seed=len(kind))
-        sums, lag, points, E, state, _ = case
-        weighted = kind != "unweighted"
-        for b in range(12):
-            pend = rnd(rng, b)
-            pts = rnd(rng, points.shape[0], nv, 3) if weighted else None
-            out = []
-            for d in ("cpu", dev):
-                def on(u):
-                    return None if u is None else tt(u).to(d)
-                E_t, st = on(E), on(state)
-                msgs = torch.zeros((nv, n_msg, 24), dtype=torch.int64,
-                                   device=d)
-                chals = torch.zeros((nv, 3), dtype=torch.int64, device=d)
-                challenger.round_tail(on(sums), on(lag), on(pts), E_t, st,
-                                      on(pend), msgs, chals, 2,
-                                      weighted=weighted)
-                out.append([x.cpu() for x in (msgs, chals, st)]
-                           + ([E_t.cpu()] if weighted else []))
-            for a, w in zip(*out):
-                assert torch.equal(a, w), (kind, b)
+    case, n_msg = _tail_case(kind, seed=len(kind))
+    sums, lag, points, E, state, _ = case
+    weighted = kind != "unweighted"
+    for b in range(12):
+        pend = rnd(rng, b)
+        pts = rnd(rng, points.shape[0], nv, 3) if weighted else None
+        out = []
+        for d in ("cpu", dev):
+            def on(u):
+                return None if u is None else tt(u).to(d)
+            E_t, st = on(E), on(state)
+            msgs = torch.zeros((nv, n_msg, 24), dtype=torch.int64,
+                               device=d)
+            chals = torch.zeros((nv, 3), dtype=torch.int64, device=d)
+            challenger.round_tail(on(sums), on(lag), on(pts), E_t, st,
+                                  on(pend), msgs, chals, 2,
+                                  weighted=weighted)
+            out.append([x.cpu() for x in (msgs, chals, st)]
+                       + ([E_t.cpu()] if weighted else []))
+        for a, w in zip(*out):
+            assert torch.equal(a, w), (kind, b)
     u = tt(rnd(rng, 16)).to(dev)
     for n in (1, 13):
         assert torch.equal(challenger.perm16_chain(u, n).cpu(),

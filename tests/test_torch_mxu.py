@@ -200,17 +200,28 @@ def test_digit_split_kernel_matches_twin(rows, n, t_layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,kb", [(1, 1), (3, 2), (125, 30)])
+@pytest.mark.parametrize("t,kb", [(1, 1), (3, 2), (7, 17), (45, 1), (3, 1),
+                                  (125, 15), (125, 30)])
 def test_plane_recombine_kernel_matches_twin(t, kb):
+    """Two chunks' products added in turn into one running sum, at edge
+    shapes and the four production shapes of the claims (dec v 45 x 1,
+    lin v 3 x 1, dec u 125 x 15, fold eta 125 x 30)."""
     dev = _cuda()
     rng = np.random.default_rng(t * kb)
     ra, rb = -(-27 * t // 8) * 8, -(-27 * kb // 8) * 8
-    O = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, ra, rb),
-                                      dtype=np.int64).astype(np.int32)).to(dev)
     start = torch.from_numpy(gl.to_i64_bits(rng.integers(
         0, P, (t, kb, 24), dtype=np.uint64))).to(dev)
-    got = mxu.plane_recombine(O, start.clone())
-    assert torch.equal(got, mxu.plane_recombine_twin(O, start.clone()))
+    got, want = start.clone(), start.clone()
+    n0 = mxu.plane_recombine.launches
+    for _ in range(2):
+        O = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, ra, rb),
+                                          dtype=np.int64).astype(np.int32))
+        O.view(-1)[:4] = torch.tensor([-(1 << 31), (1 << 31) - 1, -1, 0],
+                                      dtype=torch.int32)
+        mxu.plane_recombine(O.to(dev), got)
+        mxu.plane_recombine_twin(O.to(dev), want)
+    assert mxu.plane_recombine.launches == n0 + 2
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
