@@ -58,7 +58,19 @@ Phases (each prints its own lines; any failure exits non-zero):
               (the lin comb kernels with ring constants, ROADMAP C.h4); one
               production-size general commit (kappa 32, N 98815, 14
               witnesses) against the plain chunked matvec, timed;
-  8. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+  8. mesh     the sharded sum-checks of latticeum_tpu_torch/parallel/ at
+              the production shapes (the fold at m = 2^17, K = 15; the lin
+              with the zkVM's 126 rows at its truncated width 2^14 of
+              2^17; the row-constant Ajtai commit at kappa 32) in worlds of
+              1 rank over NCCL and 2 and 4 ranks over gloo, all sharing
+              this card, each rank a spawned process that joins through
+              multihost.init_distributed: every rank bit-equal to its
+              unsharded run, the slots CRT exchange at 2 x 2, the comb
+              kernels and round_tail launched in every rank, one
+              all-reduce per sharded round and one gather a sum-check, and
+              at 1 rank one fetch per sum-check; times beside the
+              unsharded ones (no multi-GPU scaling: one card);
+  9. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
               xorshift_guest(64) with acc_comm[0] pinned after each step
               (a checkpoint written after step 2), then 2 steps of the
               bench's fib guest; every fold of both passes the host NIFS
@@ -70,14 +82,14 @@ Phases (each prints its own lines; any failure exits non-zero):
               reconstruction rounds included) and, under
               torch.cuda.set_sync_debug_mode("error"), no other
               synchronizing call;
-  9. resume   a fresh TorchZkVmProver(debug=True) resumes from the step-2
+  10. resume  a fresh TorchZkVmProver(debug=True) resumes from the step-2
               checkpoint and folds step 3: it must equal the continuous run
               (acc_comm, z_i_comm, ivc_step_comm, the accumulator's h, r, v,
               cm, u, the collector's vars) and reach the pinned acc_comm[0];
               its relation check ran; a step whose z was changed must raise;
-  10. cli     python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
+  11. cli     python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
               --max-steps 1 --vm-size 1mb --debug prints its JSON line;
- 11. replay   the same 3 xorshift steps with the JAX package's stale
+  12. replay  the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9: the first lin
               call's betas handed to every later call's reconstruction
               rounds) must give the acc_comm[0] values that package
@@ -320,6 +332,9 @@ def main():
     small_reference(torch, dev, general=True)
     small_reference(torch, dev, general=False, general_c=True)
     general_commit(torch, np, gl, prover, dev)
+
+    phase("mesh")
+    mesh_checks(card)
 
     phase("main path")
     folds = record_folds(prover)
@@ -1206,6 +1221,116 @@ def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass, lat):
             rec = record("round_tail", CH_SOURCE, worst, ms, plain_ms, rate,
                          nbytes, work)
     return [rec]
+
+
+MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+MESH_FOLD = (1 << 17, 15)          # m, K: the production fold sum-check
+MESH_LIN = (17, 1 << 14)           # nv, n0: the zkVM's truncated lin stack
+MESH_CRT_BATCH = 256
+
+
+def mesh_checks(card):
+    """The sharded sum-checks (latticeum_tpu_torch/parallel/) at the
+    production shapes, in worlds of 1 rank over NCCL and of 2 and 4 ranks
+    over gloo, all on this one card (NCCL takes one rank per device; gloo
+    stages each collective through host memory): every rank's proof,
+    challenges, finals and transcript equal its unsharded run on the same
+    inputs, the sharded Ajtai commitment the single one, the slots CRT
+    exchange the replicated CRT (4 ranks as 2 x 2); every rank launched
+    the comb kernels and round_tail; the communicator counted one
+    all-reduce per sharded round and one gather a sum-check; the world of
+    one keeps one fetch per sum-check with no other synchronizing call.
+    Ranks that share one card measure no multi-GPU scaling."""
+    from latticeum_tpu_torch.parallel import lin_mesh, multihost
+    S_c = lin_mesh._zkvm_S_c()
+    log(f"mesh: {card} (every rank on cuda:0)")
+    for world, backend in MESH_WORLDS:
+        t0 = time.time()
+        try:
+            ranks = multihost.spawn_ranks(world, backend, mesh_rank, S_c,
+                                          "cuda", MESH_FOLD, MESH_LIN,
+                                          timeout_s=60, wait_s=300)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"mesh world {world} over {backend}: {e}")
+        log(f"mesh world {world} over {backend}: {time.time() - t0:.1f} s "
+            "with the ranks' start")
+        for rank, res in enumerate(ranks):
+            for kind in ("fold", "lin"):
+                mesh_check_run(kind, f"world {world} rank {rank}", res[kind])
+            if world == 4 and not (res["crt"]["equal"]
+                                   and res["crt"]["exchanged"]):
+                fail(f"rank {rank}: the slots CRT exchange differs")
+            if "fetches" in res:
+                log(f"mesh rank {rank}: sharded sum-checks "
+                    f"{res['fetches']} with one fetch each and no other "
+                    "synchronizing call")
+        if world == 4:
+            log(f"mesh slots CRT exchange ({MESH_CRT_BATCH} x 24 on a 2 x 2 "
+                f"mesh) equals the replicated CRT on every rank: "
+                f"{ranks[0]['crt']['collectives']}")
+
+
+def mesh_check_run(kind, where, res):
+    """One rank's sharded-vs-single dict of a `kind` ("fold" or "lin")
+    sum-check: equal, counted, launched."""
+    name = f"{kind} {where}"
+    for key in ("proof_equal", "chals_equal", "final_equal",
+                "transcript_equal", "ajtai_equal"):
+        if not res.get(key, True):
+            fail(f"mesh {name}: {key} is false")
+    calls = res["collectives"]["calls"]
+    if (calls.get("all_gather") != 1 or res["rounds_sharded"] < 1
+            or res["rounds_sharded"] >= res["rounds_total"]):
+        fail(f"mesh {name}: collectives {calls} over "
+             f"{res['rounds_total']} rounds")
+    if not all(v > 0 for k, v in res["launches"].items()
+               if k.startswith(kind) or k == "round_tail"):
+        fail(f"mesh {name}: a kernel was not launched: {res['launches']}")
+    ar_s = res["collectives"]["seconds"].get("all_reduce", 0.0)
+    log(f"mesh {name} ({res['backend']}): sharded {res['sharded_s']:.4f} s "
+        f"vs unsharded {res['single_s']:.4f} s on this card; "
+        f"{res['rounds_sharded']} of {res['rounds_total']} rounds sharded, "
+        f"all-reduces {calls['all_reduce']} "
+        f"({res['collectives']['bytes']['all_reduce']} bytes, "
+        f"{ar_s:.4f} s = {ar_s / res['sharded_s']:.3f} of the sharded "
+        f"time), gather 1 ({res['collectives']['bytes']['all_gather']} "
+        f"bytes); launches {res['launches']}")
+
+
+def mesh_rank(comm, S_c, device, fold, lin):
+    """One rank of a mesh world (spawned by mesh_checks): after one warm
+    unsharded run of each, the fold (m, K) and lin (nv, n0) sum-checks
+    sharded vs unsharded on `device`, the slots CRT exchange at 4 ranks
+    and, over NCCL, both sharded sum-checks once more under
+    one_fetch_per_sumcheck."""
+    import torch
+    from latticeum_tpu_torch.parallel import fold_mesh, lin_mesh, mesh as M
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    fold_in = fold_mesh.fold_inputs(fold[0].bit_length() - 1, fold[1],
+                                    device=device)
+    lin_in = lin_mesh.lin_inputs(*lin, S_c, device=device)
+    # Out of the timings: NCCL makes its communicator at the first
+    # collective, and a first sum-check loads the kernels and fills the
+    # allocator's cache.
+    comm.all_reduce_field(torch.zeros(1, dtype=torch.int64, device=device))
+    fold_mesh.run_fold_sumcheck(fold_in)
+    lin_mesh.run_lin_sumcheck(lin_in)
+    out = {"fold": fold_mesh.sharded_vs_single(comm, *fold, device=device),
+           "lin": lin_mesh.sharded_lin_vs_single(comm, *lin, device,
+                                                 S_c=S_c)}
+    if comm.world == 4:
+        crt = lin_mesh.slots_crt_exchange(
+            M.make_mesh(4, device),
+            lin_mesh.crt_batch(MESH_CRT_BATCH, device=device))
+        out["crt"] = {k: crt[k] for k in ("equal", "exchanged",
+                                          "collectives")}
+    if comm.backend == "nccl":
+        with one_fetch_per_sumcheck(torch) as seen:
+            fold_mesh.run_fold_sumcheck(fold_in, comm)
+            lin_mesh.run_lin_sumcheck(lin_in, comm)
+        out["fetches"] = seen
+    return out
 
 
 def small_reference(torch, dev, general, general_c=False):

@@ -92,3 +92,18 @@ def ntt_scalar_mul_t(a, s3):
     a's batch shape (without the 24 and n axes)."""
     return _from_slots_t(fq3.mul(_as_slots_t(a),
                                  tuple(c[..., None, None] for c in s3)))
+
+
+def poly_mul(a, b):
+    """Coefficient-form ring product, (..., 24): CRT, slot-wise product,
+    ICRT (exact)."""
+    return icrt(ntt_mul(crt(a), crt(b)))
+
+
+def rot(c):
+    """Multiplication by X in coefficient form, (..., 24): X^24 = X^12 - 1,
+    so out[0] = -c[23], out[i] = c[i-1] for i >= 1, and out[12] += c[23]."""
+    last = c[..., D - 1:]
+    out = torch.cat([gl.neg(last), c[..., :D - 1]], dim=-1)
+    out[..., 12:13] = gl.add(out[..., 12:13], last)
+    return out

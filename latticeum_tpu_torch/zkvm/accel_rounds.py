@@ -32,6 +32,16 @@ tiny and stay plain torch up to their round tail.
 
 All arrays are t-layout (rows, 24, n) with a bit-reversed hypercube, so a
 round pairs the two contiguous halves.
+
+Given a communicator (``parallel/mesh.py``), both sum-checks run sharded:
+each rank holds the strided column shard of the stack, so every round's
+pairs stay on one rank, and each round's sums are all-reduced (exactly,
+mod p) before its round tail, which every rank then runs on the same sums:
+challenger states, challenges and messages stay bit-identical to the
+unsharded run without a broadcast.  At the round whose kernel would get
+fewer local columns than it takes (and at the last round at the latest)
+the ranks all-gather their columns once, and every rank finishes the
+sum-check unsharded.  Without one, nothing of that runs.
 """
 
 from __future__ import annotations
@@ -169,6 +179,23 @@ def _contract(a, b):
     return gl.sum_axis(rq.ntt_mul_t(a, b), -1)
 
 
+def _gather_round(width, world, rounds):
+    """The round at whose start a sharded sum-check over `width` global
+    columns all-gathers them: the first whose comb kernel would get fewer
+    local columns than it takes (2 at round 0, 4 after: comb.py's width
+    checks; the input halves each round after the first), and the last
+    round at the latest, so each sum-check gathers exactly once.  The
+    rounds before it are the sharded ones, each with one all-reduce.  An
+    unsharded sum-check has -1 (it neither gathers nor reduces)."""
+    local = width // world
+    return next((r for r in range(rounds)
+                 if local >> max(r - 1, 0) < (4 if r else 2)), rounds - 1)
+
+
+def _world(comm):
+    return 1 if comm is None else comm.world
+
+
 # -- linearization ------------------------------------------------------------
 
 def _factored_rounds(n0, nv):
@@ -225,7 +252,7 @@ def _lin_reconstruct(mz, nv, r, degree, sets, tab, scale, state, pend0,
 
 
 def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
-                            recon_betas=None, log=None):
+                            recon_betas=None, log=None, comm=None):
     """Eq-factored linearization sum-check, chained on the device.
 
     g_t: (t+1, 24, n0) t-layout stack, eq row last (n0 <= 2^nv, a power of
@@ -238,14 +265,18 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
     them by E * eqf(beta_r, t); the eq table advances by pair sums only.
     A truncated stack finishes with the reconstruction rounds over the eq
     table of `recon_betas` (beta_s unless given: chip_smoke.py replays the
-    JAX package's stale betas, ROADMAP C.h9, through it).  Returns (proof,
-    chals, final): host ints, and the final rows [Mz..., eq] as a
-    (t+1, 24) host tensor."""
+    JAX package's stale betas, ROADMAP C.h9, through it).  With a
+    communicator `comm`, g_t is this rank's strided column shard of the
+    stack (see the module docstring).  Returns (proof, chals, final): host
+    ints, and the final rows [Mz..., eq] as a (t+1, 24) host tensor."""
     dev = g_t.device
     t_rows = g_t.shape[0] - 1
-    n0 = g_t.shape[-1]
+    n0 = g_t.shape[-1] * _world(comm)
     npts_q, n_msg = degree, degree + 1
     n_fact = _factored_rounds(n0, nv)
+    if comm is not None and not n_fact:
+        raise ValueError(f"a {n0}-column lin stack has no round to shard")
+    gather = _gather_round(n0, comm.world, n_fact) if comm else -1
     transcript.absorb_u64(nv)
     transcript.absorb_u64(degree)
     state, pend0 = _export(transcript, dev)
@@ -264,11 +295,15 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
 
     mz, eq = g_t[:t_rows], g_t[t_rows]
     for r in range(n_fact):
+        if r == gather:
+            mz, eq = comm.all_gather_cols(mz, eq)
         Tc = _pair_sum(eq).contiguous()
         if r == 0:
             Sq = comb.lin_round0(mz.contiguous(), Tc, sets, npts_q)
         else:
             Sq, mz = comb.lin_roundr(mz, Tc, chals[r - 1], sets, npts_q)
+        if r < gather:
+            Sq = comm.all_reduce_field(Sq)
         challenger.round_tail(Sq, lag, betas, E, state,
                               _pending(pend0, chals, r), msgs, chals, r)
         eq = Tc
@@ -294,8 +329,26 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
 
 # -- folding ------------------------------------------------------------------
 
+def fold_round_sums(eqs, c2r, t_s, mu, b_small, r3):
+    """One fold round over the columns at hand: the sums [h at 2*b_small
+    points, c1 and c2 at 0, c1 and c2 at 1] (2*b_small + 4, 24), the
+    pair-summed eq tables, and the f_hat rows (folded at r3 first, after
+    round 0: r3 None)."""
+    half = c2r.shape[-1] // 2
+    Tn = _pair_sum(eqs)                                      # (3, 24, half)
+    Sc0 = _contract(Tn[:2], c2r[..., :half])                 # (2, 24)
+    Sc1 = _contract(Tn[:2], c2r[..., half:])
+    Tb = Tn[2].contiguous()
+    if r3 is None:
+        Sh = comb.fold_round0(t_s, Tb, mu, b_small)
+    else:
+        Sh, t_s = comb.fold_roundr(t_s, Tb, mu, r3, b_small)
+    return torch.cat([Sh, Sc0, Sc1]), Tn, t_s
+
+
 def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
-                             eq_points, b_small, K, TAU=3, log=None):
+                             eq_points, b_small, K, TAU=3, log=None,
+                             comm=None):
     """Eq-factored folding sum-check, chained on the device.
 
     head: (5, 24, n) rows [eq_r1, c1, eq_r2, c2, eq_beta]; tail: the
@@ -305,13 +358,16 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
     tables, evaluates h at 2*b_small points over the tail (T_beta-weighted,
     fold_round0 / fold_roundr) and the two linear c terms at {0, 1}
     (T_r-weighted); the round tail extends and weights the three tables'
-    sums into the message.  Returns (proof, chals, final): host ints, and
-    the final rows [eq1, c1, eq2, c2, eq_beta, f_hat...] as a host tensor."""
+    sums into the message.  With a communicator `comm`, head and tail are
+    this rank's strided column shards (see the module docstring).  Returns
+    (proof, chals, final): host ints, and the final rows [eq1, c1, eq2, c2,
+    eq_beta, f_hat...] as a host tensor."""
     dev = tail.device
-    n0 = tail.shape[-1]
+    n0 = tail.shape[-1] * _world(comm)
     if n0 != 1 << nv:
         raise ValueError(f"fold sum-check needs full-width MLEs "
                          f"({n0} != 2^{nv})")
+    gather = _gather_round(n0, comm.world, nv) if comm else -1
     npts_h, n_msg = 2 * b_small, degree + 1
     transcript.absorb_u64(nv)
     transcript.absorb_u64(degree)
@@ -326,21 +382,16 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
     t_s = tail.contiguous()
     c2r, eqs = head[1:4:2], head[0::2]
     for r in range(nv):
+        if r == gather:
+            t_s, c2r, eqs = comm.all_gather_cols(t_s, c2r, eqs)
         if r:
             c2r = comb.fold_t(c2r, chals[r - 1])
-        half = c2r.shape[-1] // 2
-        Tn = _pair_sum(eqs)                                  # (3, 24, half)
-        Sc0 = _contract(Tn[:2], c2r[..., :half])             # (2, 24)
-        Sc1 = _contract(Tn[:2], c2r[..., half:])
-        Tb = Tn[2].contiguous()
-        if r == 0:
-            Sh = comb.fold_round0(t_s, Tb, mu, b_small)
-        else:
-            Sh, t_s = comb.fold_roundr(t_s, Tb, mu, chals[r - 1], b_small)
-        challenger.round_tail(torch.cat([Sh, Sc0, Sc1]), lag, points, E,
-                              state, _pending(pend0, chals, r), msgs, chals,
-                              r)
-        eqs = Tn
+        sums, eqs, t_s = fold_round_sums(eqs, c2r, t_s, mu, b_small,
+                                         chals[r - 1] if r else None)
+        if r < gather:
+            sums = comm.all_reduce_field(sums)
+        challenger.round_tail(sums, lag, points, E, state,
+                              _pending(pend0, chals, r), msgs, chals, r)
     last = chals[nv - 1]
     t_s = comb.fold_t(t_s, last)
     c2r = comb.fold_t(c2r, last)

@@ -8,6 +8,7 @@ zkVM commitments.  Tolerance: none (exact integers).  The two packages'
 objects are different classes, so they are compared field by field."""
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -187,3 +188,22 @@ def test_commitments_match_jax(nifs_pair, which):
             7, 0x11004, 0xDEADBEEF)
         assert (ours.vm_mem_ops_vec_comm([1, 2, 3, 4], op)
                 == theirs.vm_mem_ops_vec_comm([1, 2, 3, 4], op))
+
+
+# -- verbatim copies --------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("rel", ["ring/models.py", "nifs/generic.py",
+                                 "nifs/serialize.py", "utils/security.py",
+                                 "utils/tracing.py"])
+def test_copy_is_verbatim(rel):
+    """The ring models, the generic NIFS, the proof encoding, the MSIS
+    check and the tracer are copied unchanged: each reads its imports
+    relative to the host tree, which keeps the original's layout.  Their
+    behaviour against the originals: tests/test_torch_ring_models.py,
+    tests/test_torch_generic_nifs.py, tests/test_torch_serialize.py."""
+    ours = ROOT / "latticeum_tpu_torch" / "host" / rel
+    theirs = ROOT / "latticeum_tpu" / rel
+    assert ours.read_text() == theirs.read_text()

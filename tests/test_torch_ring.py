@@ -106,3 +106,25 @@ def test_ref_limbs_helper_round_trips():
     assert np.array_equal(gl.to_u64(gl.from_limbs(ref(u))), u)
     assert np.array_equal(
         gl_ref.to_int(ref(u)).astype(np.uint64), u)
+
+
+@pytest.mark.parametrize("name", ["poly_mul", "rot"])
+def test_poly_mul_and_rot_match_reference(name):
+    """The coefficient-form product and the multiplication by X against
+    the JAX package's rq under numpy and the Python-int reference, with
+    rows of zeros and of p - 1 among the first."""
+    a, b = rand_rings(6, seed=7, shape=(2,)), rand_rings(6, seed=8, shape=(2,))
+    a[0, 0], a[0, 1], b[0, :2] = 0, P - 1, P - 1
+    if name == "poly_mul":
+        got = rq.poly_mul(t(a), t(b))
+        with B.numpy_mode():
+            want = rq_ref.poly_mul(ref(a), ref(b))
+        oracle = [R.poly_mul([int(v) for v in x], [int(v) for v in y])
+                  for x, y in zip(a[0], b[0])]
+    else:
+        got = rq.rot(t(a))
+        with B.numpy_mode():
+            want = rq_ref.rot(ref(a))
+        oracle = [R.rot([int(v) for v in x]) for x in a[0]]
+    assert same(got, want)
+    assert gl.to_int_lists(got[0]) == oracle
