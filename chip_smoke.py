@@ -51,14 +51,20 @@ Phases (each prints its own lines; any failure exits non-zero):
               (CUDA graph) beside its bound, the chain of its
               permutations alone (the latency floor) and the design's
               critical path from the latency probes;
-  7. small    two chained folds of the port on the card against the host
+  7. tables   eq_table and head_alpha (zkvm/tables.py, csrc/tables.cu)
+              against their twins, bit for bit: eq_table in both layouts
+              at 1 ... 2^17 rows, truncated (skipped top variables) and
+              not, with random points and with every coordinate p - 1;
+              head_alpha at the production tail 90 x 24 x 2^17 with rows
+              of p - 1; each timed (CUDA graph) beside its bound and twin;
+  8. small    two chained folds of the port on the card against the host
               NIFS on the test CCS (transcript, proofs, accumulator, the
               host verifier), with the row-constant and with a general
               dense Ajtai scheme, and with CCS constants that are not +-1
               (the lin comb kernels with ring constants, ROADMAP C.h4); one
               production-size general commit (kappa 32, N 98815, 14
               witnesses) against the plain chunked matvec, timed;
-  8. mesh     the sharded sum-checks of latticeum_tpu_torch/parallel/ at
+  9. mesh     the sharded sum-checks of latticeum_tpu_torch/parallel/ at
               the production shapes (the fold at m = 2^17, K = 15; the lin
               with the zkVM's 126 rows at its truncated width 2^14 of
               2^17; the row-constant Ajtai commit at kappa 32) in worlds of
@@ -70,26 +76,27 @@ Phases (each prints its own lines; any failure exits non-zero):
               all-reduce per sharded round and one gather a sum-check, and
               at 1 rank one fetch per sum-check; times beside the
               unsharded ones (no multi-GPU scaling: one card);
-  9. main     TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+  10. main    TorchZkVmProver(device="cuda") at default_params(): 3 steps of
               xorshift_guest(64) with acc_comm[0] pinned after each step
               (a checkpoint written after step 2), then 2 steps of the
               bench's fib guest; every fold of both passes the host NIFS
               verifier with the same folded accumulator; launch counts of
               every kernel (perm8 and sponge8 included: the memory and code
-              trees of each prove_vm) > 0, and ring_contract called; each
+              trees of each prove_vm) > 0, eq_table at least 10 a fold and
+              head_alpha one a fold, and ring_contract called; each
               prove_vm's tree time and its parts; every lin and fold
               sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
               torch.cuda.set_sync_debug_mode("error"), no other
               synchronizing call;
-  10. resume  a fresh TorchZkVmProver(debug=True) resumes from the step-2
+  11. resume a fresh TorchZkVmProver(debug=True) resumes from the step-2
               checkpoint and folds step 3: it must equal the continuous run
               (acc_comm, z_i_comm, ivc_step_comm, the accumulator's h, r, v,
               cm, u, the collector's vars) and reach the pinned acc_comm[0];
               its relation check ran; a step whose z was changed must raise;
-  11. cli     python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
+  12. cli    python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
               --max-steps 1 --vm-size 1mb --debug prints its JSON line;
-  12. replay  the same 3 xorshift steps with the JAX package's stale
+  13. replay the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9: the first lin
               call's betas handed to every later call's reconstruction
               rounds) must give the acc_comm[0] values that package
@@ -120,7 +127,12 @@ SASS: digit_split does DIGIT_OPS integer operations per value, and
 plane_recombine per output its 243 plane products' sums plus the field
 operations of RECOMBINE_OPS at the probes' SASS; the bytes bound both.
 torch._int_mm is bounded by 2 M K N operations per slot over the card's
-dense int8 tensor-core rate.
+dense int8 tensor-core rate.  eq_table and head_alpha are counted from
+their functions at the probes' SASS: the doubling's 2 (rows - 1) Fq3
+multiplies for eq_table; for head_alpha the least of two ways to form
+the linear sums unreduced (head_alpha_ops: 64x64 -> 128-bit
+multiply-adds into 192-bit sums, one reduction an output); the bytes
+bound both.
 """
 
 import contextlib
@@ -177,8 +189,22 @@ PROBE(mul, x.c0 = gl_mul(x.c0, y.c0); y.c0 = gl_mul(y.c0, x.c0))
 PROBE(mul_w, x.c0 = gl_mul_w(y.c0); y.c0 = gl_mul_w(x.c0))
 PROBE(fq3_mul, x = fq3_mul(x, y); y = fq3_mul(y, x))
 PROBE(fq3_square, x = fq3_square(y); y = fq3_square(x))
+// mac192 into a sum held in x's words, its product on the chain;
+// reduce192 of a sum whose high words are on the chain.
+__device__ __forceinline__ void mac_x(Fq3 &x, u64 b) {
+  U192 s{x.c0, x.c1, (unsigned)x.c2};
+  mac192(s, s.hi, b);
+  x = Fq3{s.lo, s.hi, s.top};
+}
+__device__ __forceinline__ u64 red_x(u64 lo, u64 hi, u64 top) {
+  return reduce192(U192{lo, hi, (unsigned)top});
+}
+PROBE(mac192, mac_x(x, y.c0); mac_x(x, y.c1))
+PROBE(reduce192,
+      x.c0 = red_x(y.c1, x.c0, x.c2); x.c2 = red_x(y.c2, x.c2, x.c0))
 """
-PROBE_OPS = ("add", "sub", "mul", "mul_w", "fq3_mul", "fq3_square")
+PROBE_OPS = ("add", "sub", "mul", "mul_w", "fq3_mul", "fq3_square", "mac192",
+             "reduce192")
 # Latency probes: one warp chains N dependent steps of one operation of
 # csrc/challenger.cu (or field.cuh) between two clock64 reads that depend
 # on the chain's value; (cycles at N = 96 - cycles at N = 32) / 64 is one
@@ -241,10 +267,13 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                # XLA functions of the JAX package, no Pallas kernel
                "digit_split": "latticeum_tpu/field/mxu.py:45",
                "plane_recombine": "latticeum_tpu/field/mxu.py:91",
-               "round_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:129"}
+               "round_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:129",
+               "eq_table": "latticeum_tpu/zkvm/accel.py:141",
+               "head_alpha": "latticeum_tpu/zkvm/accel_nifs.py:997"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
 CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
+TABLES_SOURCE = "latticeum_tpu_torch/csrc/tables.cu"
 MXU_KERNELS = ("digit_split", "plane_recombine")
 # The instantiation whose SASS sets the per-permutation work of the bounds.
 PERM8_ONE_LANE = "perm8_kernelILi1EE"
@@ -293,7 +322,7 @@ def main():
     from latticeum_tpu_torch.crypto import challenger, poseidon2
     from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
-    from latticeum_tpu_torch.zkvm import comb
+    from latticeum_tpu_torch.zkvm import comb, tables
 
     dev = torch.device("cuda")
     card, rate, mix, perm8_sass, perm16_sass, lat = device_and_build(
@@ -327,6 +356,9 @@ def main():
     records += fiat_shamir_checks(torch, np, gl, prover, dev, rate,
                                   perm16_sass, lat)
 
+    phase("tables")
+    records += tables_checks(torch, np, gl, prover, dev, rate, mix)
+
     phase("small reference")
     small_reference(torch, dev, general=False)
     small_reference(torch, dev, general=True)
@@ -343,6 +375,7 @@ def main():
     poseidon2.perm8.launches = 0
     poseidon2.sponge8.launches = 0
     challenger.round_tail.launches = 0
+    tables.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     with one_fetch_per_sumcheck(torch) as sumchecks:
@@ -356,6 +389,7 @@ def main():
     launches["perm8_sponge"] = poseidon2.sponge8.launches
     launches.update({w.__name__: w.launches for w in mxu.KERNELS})
     launches["round_tail"] = challenger.round_tail.launches
+    launches.update({k.__name__: k.launches for k in tables.KERNELS})
     contractions = mxu.ring_contract.calls
     log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
         f"{sumchecks['fold']} fold, each with exactly one device -> host "
@@ -369,6 +403,11 @@ def main():
         fail("a kernel of the main path was never launched")
     if not contractions:
         fail("the main path made no ring_contract call")
+    if launches["eq_table"] < 10 * len(folds) or \
+            launches["head_alpha"] != len(folds):
+        fail(f"{len(folds)} folds launched eq_table {launches['eq_table']} "
+             f"times (at least 10 a fold) and head_alpha "
+             f"{launches['head_alpha']} (one a fold)")
     t0 = time.time()
     for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
         if prover.verify_fold(acc, cm_i, proof) != folded:
@@ -711,6 +750,20 @@ def lin_ops(sets, q, npts, fold):
         if fold:
             terms += [(2 * k, SUB3), (2 * k, MUL3), (2 * k, ADD3)]
     return tally((8 * q, tally(*terms)),)
+
+
+def head_alpha_ops(m, half):
+    """Field operations that the alpha-sums need, unreduced as they are
+    linear: per term (slot, column, alpha) the schoolbook's 9 products
+    into 3 sums (w a1, w a2 formed once an alpha), or Karatsuba's 6 with
+    3 adds of tail values; per output (slot, column, half) the sums'
+    reductions, and Karatsuba's recombination."""
+    terms, outs = 8 * m * 2 * half, 8 * m * 2
+    school = tally((terms, {"mac192": 9}), (outs, {"reduce192": 3}))
+    karatsuba = tally((terms, {"mac192": 6, "add": 3}),
+                      (outs, {"reduce192": 6, "mul_w": 2, "sub": 6,
+                              "add": 3}))
+    return school, karatsuba
 
 
 def bound(rate, nbytes, work):
@@ -1221,6 +1274,109 @@ def fiat_shamir_checks(torch, np, gl, prover, dev, rate, perm16_sass, lat):
             rec = record("round_tail", CH_SOURCE, worst, ms, plain_ms, rate,
                          nbytes, work)
     return [rec]
+
+
+def tables_checks(torch, np, gl, prover, dev, rate, mix):
+    """eq_table and head_alpha (zkvm/tables.py, csrc/tables.cu) against
+    their twins on the card, bit for bit: eq_table in both layouts at
+    small and truncated sizes and at the production 2^s rows, each with
+    random points and with every coordinate p - 1; head_alpha at the
+    production tail (2 K TAU, 24, m) with rows of p - 1.  Each kernel
+    timed by a CUDA graph of its launches beside its bound, the twins by
+    CUDA events.  Returns the two records (eq_table's in the t-layout,
+    which 7 of a fold's 10 tables take)."""
+    from latticeum_tpu_torch.host.nifs.structs import TAU
+    from latticeum_tpu_torch.zkvm import tables
+    ccs, K = prover.ccs, prover.params.K
+    rng = np.random.default_rng(17)
+    worst = {"eq_table": 0, "head_alpha": 0}
+
+    def point(nv, edge):
+        return [(gl.P - 1,) * 3 if edge else tuple(
+            int(v) for v in rng.integers(0, gl.P, 3, dtype=np.uint64))
+            for _ in range(nv)]
+
+    cases = ((0, None), (1, None), (5, 5), (9, None), (12, 3000),
+             (ccs.s, 1 << 14), (ccs.s, None))
+    for nv, max_rows in cases:
+        for edge in (False, True):
+            pt = point(nv, edge)
+            for t_layout in (False, True):
+                e = u64_err(gl, np, tables.eq_table(pt, max_rows, dev,
+                                                    t_layout),
+                            tables.eq_table_twin(pt, max_rows, dev,
+                                                 t_layout))
+                worst["eq_table"] = max(worst["eq_table"], e)
+                if e:
+                    fail(f"eq_table nv={nv} max_rows={max_rows} "
+                         f"edge={edge} t_layout={t_layout}: "
+                         f"max_abs_err={e} against its twin")
+    log(f"eq_table: {2 * 2 * len(cases)} tables (nv, max_rows in {cases}; "
+        "random and all p - 1; both layouts) bit-exact with the twin")
+
+    records = []
+    pt = point(ccs.s, False)
+    for t_layout in (False, True):
+        f_host, n_dbl = tables.eq_factors(pt, None, t_layout)
+        f = f_host.to(dev)
+        out = torch.empty(tables.eq_out_shape(n_dbl, t_layout),
+                          dtype=gl.DTYPE, device=dev)
+        rows = 1 << n_dbl
+        ms = graph_ms(torch, lambda: tables.eq_table_launch(
+            f, n_dbl, t_layout, out), 50)
+        wrapper = cuda_ms(torch, lambda: tables.eq_table(
+            pt, None, dev, t_layout, out), 5)
+        plain = cuda_ms(torch, lambda: tables.eq_table_twin(
+            pt, None, dev, t_layout), 2)
+        fill = graph_ms(torch, lambda: out.fill_(1), 50)
+        nbytes = 8 * (out.numel() + f.numel())
+        work = pipes({"fq3_mul": 2 * (rows - 1)}, mix)
+        layout = "t-layout" if t_layout else "standard"
+        log(f"eq_table {layout} {tuple(out.shape)}: {ms:.5f} ms (CUDA graph "
+            f"of 50); the wrapper with its factor upload {wrapper:.4f} ms "
+            f"(CUDA events over 5); twin {plain:.3f} ms; the same bytes "
+            f"written by out.fill_ {fill:.5f} ms (CUDA graph of 50)")
+        rec = record("eq_table", TABLES_SOURCE, worst["eq_table"], ms,
+                     plain, rate, nbytes, work)
+        del f, out
+    records.append(rec)
+
+    m, half = ccs.m, K * TAU
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape):                    # canonical, from two 32-bit halves
+        lo, hi = (torch.randint(0, 1 << 32, shape, generator=gen,
+                                dtype=gl.DTYPE, device=dev) for _ in "lh")
+        return gl._canon(lo | (hi << 32))
+
+    tail, alpha = rnd(2 * half, 24, m), rnd(2 * half, 3)
+    tail[0] = gl.P_I64 - 1
+    tail[-1, :, :64] = gl.P_I64 - 1
+    alpha[0] = gl.P_I64 - 1
+    alpha[-1] = gl.P_I64 - 1
+    got = [torch.empty((24, m), dtype=gl.DTYPE, device=dev)
+           for _ in range(2)]
+    want = [torch.empty_like(got[0]) for _ in range(2)]
+    tables.head_alpha(tail, alpha, *got)
+    tables.head_alpha_twin(tail, alpha, *want)
+    e = u64_err(gl, np, tuple(got), tuple(want))
+    worst["head_alpha"] = e
+    if e:
+        fail(f"head_alpha {tuple(tail.shape)}: max_abs_err={e} against its "
+             "twin")
+    ms = graph_ms(torch, lambda: tables.head_alpha(tail, alpha, *got), 10)
+    plain = cuda_ms(torch, lambda: tables.head_alpha_twin(tail, alpha,
+                                                          *want), 1)
+    nbytes = 8 * (tail.numel() + alpha.numel() + 2 * 24 * m)
+    work = min((pipes(w, mix) for w in head_alpha_ops(m, half)),
+               key=lambda w: bound(rate, nbytes, w)[0])
+    log(f"head_alpha {tuple(tail.shape)} (rows of p - 1) bit-exact with the "
+        f"twin; {ms:.4f} ms (CUDA graph of 10); twin {plain:.3f} ms")
+    records.append(record("head_alpha", TABLES_SOURCE, worst["head_alpha"],
+                          ms, plain, rate, nbytes, work))
+    del tail, alpha, got, want
+    torch.cuda.empty_cache()
+    return records
 
 
 MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))

@@ -21,7 +21,8 @@ import torch
 
 from .field import goldilocks as gl
 from .host.nifs.structs import LCCCS, Witness
-from .zkvm.accel_nifs import TorchWitness, _brev
+from .zkvm.accel_nifs import TorchWitness
+from .zkvm.tables import brev_host
 
 _LCCCS_FIELDS = ("r", "v", "cm", "u", "x_w")
 
@@ -53,11 +54,11 @@ def ccs_coo_limbs(coo):
 
 def _fhat_std_to_t(f_hat):
     """(..., TAU, npad, 24) standard -> (..., TAU, 24, npad) bit-reversed."""
-    return f_hat.transpose(-1, -2)[..., _brev(f_hat.shape[-2])].contiguous()
+    return f_hat.transpose(-1, -2)[..., brev_host(f_hat.shape[-2])].contiguous()
 
 
 def _fhat_t_to_std(f_hat):
-    return f_hat[..., _brev(f_hat.shape[-1])].transpose(-1, -2).contiguous()
+    return f_hat[..., brev_host(f_hat.shape[-1])].transpose(-1, -2).contiguous()
 
 
 def _limbs(x):

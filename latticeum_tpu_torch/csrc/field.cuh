@@ -49,6 +49,28 @@ __device__ __forceinline__ u64 gl_mul_w(u64 a) {
   return gl_reduce128(a << 40, a >> 24);
 }
 
+// An unreduced sum of 64x64-bit products, lo + 2^64 hi + 2^128 top: up to
+// 2^32 products of any two words fit.
+struct U192 {
+  u64 lo, hi;
+  unsigned top;
+};
+
+// s += a * b, the full 128-bit product, carries into top.
+__device__ __forceinline__ void mac192(U192 &s, u64 a, u64 b) {
+  asm("mad.lo.cc.u64 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u64 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+l"(s.lo), "+l"(s.hi), "+r"(s.top)
+      : "l"(a), "l"(b));
+}
+
+// s mod p, canonical: 2^128 = 2^96 * 2^32 = -2^32 (mod p), and top << 32
+// <= p - 1.
+__device__ __forceinline__ u64 reduce192(const U192 &s) {
+  return gl_sub(gl_reduce128(s.lo, s.hi), (u64)s.top << 32);
+}
+
 // x^7, the Poseidon2 s-box: x^2, x^4, x^6, x^7.
 __device__ __forceinline__ u64 gl_pow7(u64 x) {
   const u64 x2 = gl_mul(x, x);

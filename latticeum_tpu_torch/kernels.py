@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu")
+SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
+           "tables.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -110,6 +111,8 @@ def lib():
         "lt_plane_recombine": [vp] * 2 + [i64] * 4 + [vp],
         "lt_round_tail": [vp] * 9 + [i32] * 7 + [vp],
         "lt_perm16_chain": [vp] * 2 + [i32, vp],
+        "lt_eq_table": [vp] * 2 + [i32] * 2 + [vp],
+        "lt_head_alpha": [vp] * 4 + [i32, i64, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(so, name)

@@ -32,17 +32,10 @@ from ..crypto import challenger
 from ..ring import rq
 from ..zkvm import accel_rounds, comb
 from ..zkvm.accel import Engine
-from ..zkvm.accel_nifs import _brev
 from . import mesh as M
 from .kernels import rand_field
 
 TAU = 3
-
-
-def eq_t(engine, point, max_rows=None):
-    """The eq table of `point` in the bit-reversed t-layout (24, rows)."""
-    eq = engine.eq_table(point, max_rows)
-    return eq.T[:, _brev(eq.shape[0]).to(eq.device)].contiguous()
 
 
 def rand_point(rng, nv):
@@ -60,7 +53,7 @@ def fold_inputs(nv, K, b_small=2, seed=11, device="cpu"):
     _, beta, _, mu_s = fold.squeeze_alpha_beta_zeta_mu(Transcript(), nv, K)
     points = (rand_point(rng, nv), rand_point(rng, nv), beta)
     engine = Engine(get_test_ccs(), device)
-    eqs = [eq_t(engine, p) for p in points]
+    eqs = [engine.eq_table(p, None, t_layout=True) for p in points]
     gen = torch.Generator(device).manual_seed(seed)
     n = 1 << nv
     c = rand_field((2, 24, n), gen)

@@ -28,8 +28,8 @@ from ..ring import rq
 from ..zkvm import accel_rounds, comb
 from ..zkvm.accel import Engine
 from . import mesh as M
-from .fold_mesh import (_result, _timed, count_collectives, eq_t,
-                        in_turns, rand_point, sharded_run)
+from .fold_mesh import (_result, _timed, count_collectives, in_turns,
+                        rand_point, sharded_run)
 from .kernels import rand_field
 
 
@@ -50,7 +50,8 @@ def lin_inputs(nv, n0=None, S_c=None, seed=17, device="cpu"):
     S, signs, t_rows = _zkvm_S_c() if S_c is None else S_c
     n0 = 1 << nv if n0 is None else n0
     beta = rand_point(np.random.default_rng(seed), nv)
-    eq = eq_t(Engine(get_test_ccs(), device), beta, n0)
+    eq = Engine(get_test_ccs(), device).eq_table(beta, n0,
+                                                  t_layout=True)
     gen = torch.Generator(device).manual_seed(seed)
     mz = rand_field((t_rows, 24, n0), gen)
     return {"nv": nv, "S": S, "signs": signs, "beta": beta,

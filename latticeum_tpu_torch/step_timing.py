@@ -28,13 +28,23 @@ the kernels each one launched, and their number, beside the unprofiled
 ``sumcheck_s`` of the other steps), the second-to-last step's fold runs
 under cProfile (its 30 largest cumulative entries are printed) and the last
 step's fold under ``torch.profiler``: the device's busy time is the sum of
-the durations of the kernels it traced, beside the fold's wall time.
-Those three steps' times include the profilers.
+the durations of the kernels it traced, beside the fold's wall time, and
+``device_by_kernel`` lists its 25 largest kernels by name (launches and
+summed device seconds), ``device_ranges`` the calls, kernels and their
+summed device seconds of the eq tables (``Engine.eq_table``, every layout
+and caller) and of the fold head (``TorchNifs._build_head``, its three eq
+tables included), each traced as a ``torch.profiler.record_function``
+range (the kernels that ran inside its span on the device), and
+``device_htod`` the fold's host -> device copies, with those made from
+pageable memory apart (each waits for the stream before it).  Those three
+steps' times include the profilers.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import cProfile
 import io
 import json
@@ -103,10 +113,12 @@ def main(argv=None):
             report["cprofile_fold_s"] = time.perf_counter() - t0
             report["cprofile"] = buf.getvalue()
             return out
-        out, busy, kernels = device_busy(lambda: inner(*a), torch)
+        with traced_ranges(torch):
+            out, busy, kernels, detail = device_busy(lambda: inner(*a),
+                                                     torch, detail=True)
         report.update(device_step=step,
                       device_fold_wall_s=time.perf_counter() - t0,
-                      device_busy_s=busy, device_kernels=kernels)
+                      device_busy_s=busy, device_kernels=kernels, **detail)
         return out
 
     prover.fold = fold
@@ -126,6 +138,17 @@ def main(argv=None):
         "timings": prover.timings, **report}), flush=True)
     if profile_text:
         print(profile_text, flush=True)
+    if "device_by_kernel" in report:
+        print(f"fold of step {report['device_step']}: "
+              f"{report['device_kernels']} launches, "
+              f"{report['device_busy_s']:.4f} s of device time, "
+              f"{report['device_htod']}")
+        print(f"{'launches':>9} {'device s':>9}  kernel")
+        for r in report["device_by_kernel"]:
+            print(f"{r['launches']:9d} {r['device_s']:9.4f}  "
+                  f"{r['name'][:110]}")
+        for name, r in report["device_ranges"].items():
+            print(f"range {name}: {r}")
     return 0
 
 
@@ -142,18 +165,83 @@ def timed(run, seconds, torch):
     return wrapped
 
 
-def device_busy(fn, torch):
+RANGE = "step_timing:"
+TOP_KERNELS = 25
+
+
+@contextlib.contextmanager
+def traced_ranges(torch):
+    """Engine.eq_table and TorchNifs._build_head, each call inside a
+    torch.profiler.record_function range named RANGE + its name."""
+    from latticeum_tpu_torch.zkvm.accel import Engine
+    from latticeum_tpu_torch.zkvm.accel_nifs import TorchNifs
+    saved = [(cls, name, getattr(cls, name))
+             for cls, name in ((Engine, "eq_table"),
+                               (TorchNifs, "_build_head"))]
+
+    def ranged(name, fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(RANGE + name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    for cls, name, fn in saved:
+        setattr(cls, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def device_busy(fn, torch, detail=False):
     """fn() under torch.profiler: (its result, the summed durations in
-    seconds of the kernels it launched, their number)."""
+    seconds of the kernels it launched, their number); with `detail`, also
+    a dict of the TOP_KERNELS largest kernels by name, the launches and
+    summed durations of the kernels inside each RANGE range (its span on
+    the device's timeline, which the profiler traces as an event of its
+    own and which is not a kernel), and the host -> device copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as tp:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [e for e in tp.events() if e.device_type == DeviceType.CUDA]
-    return (out, sum(e.time_range.elapsed_us() for e in kernels) / 1e6,
-            len(kernels))
+    events = [e for e in tp.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(RANGE)]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    if not detail:
+        return out, busy, len(kernels)
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    kernels.sort(key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kernels]
+    ranges = {}
+    for a in events:
+        if not a.name.startswith(RANGE):
+            continue
+        lo, hi = a.time_range.start, a.time_range.end
+        inside = [e for e in kernels[bisect.bisect_left(starts, lo):
+                                     bisect.bisect_right(starts, hi)]
+                  if e.time_range.end <= hi]
+        r = ranges.setdefault(a.name[len(RANGE):], {
+            "calls": 0, "launches": 0, "device_s": 0.0, "span_s": 0.0})
+        r["calls"] += 1
+        r["launches"] += len(inside)
+        r["device_s"] += sum(e.time_range.elapsed_us() for e in inside) / 1e6
+        r["span_s"] += (hi - lo) / 1e6
+    htod = [e.name for e in kernels if "HtoD" in e.name]
+    return out, busy, len(kernels), {
+        "device_by_kernel": [{"name": name[:200], "launches": n,
+                              "device_s": us / 1e6}
+                             for name, (n, us) in top],
+        "device_kernel_names": len(by_name),
+        "device_ranges": ranges,
+        "device_htod": {"copies": len(htod),
+                        "pageable": sum("Pageable" in n for n in htod)}}
 
 
 def profiled_in(run, kind, folds, step, report, torch):

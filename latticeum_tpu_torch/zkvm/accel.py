@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field import fq3, goldilocks as gl
-from ..host.field import host as H
+from ..field import goldilocks as gl
 from ..ring import rq
+from . import tables
 
 
 def _coo_host(ccs):
@@ -91,22 +91,10 @@ class Engine:
         s = gl.segment_sum(prod, self.mats * n + self.cols, self.ccs.t * n)
         return s.reshape(self.ccs.t, n, 24)
 
-    def eq_table(self, point, max_rows):
+    def eq_table(self, point, max_rows, t_layout=False, out=None):
         """eq(point, x) over the hypercube, variable 0 = least significant
-        index bit, as (rows, 24) with rows = 2^ceil(log2(min(2^nv, max_rows))).
-        Skipped top variables fold their prod(1 - r_j) into every row."""
-        nv = len(point)
-        rows = 1 << nv
-        if max_rows is not None:
-            rows = min(rows, max_rows)
-        n_dbl = (rows - 1).bit_length() if rows > 1 else 0
-        tail = (1, 0, 0)
-        for r in point[n_dbl:]:
-            tail = H.fq3_mul(tail, H.fq3_sub((1, 0, 0), r))
-        cur = gl.from_int([H.ntt_from_fq3(tail)], self.device)
-        for r in point[:n_dbl]:
-            low = rq.ntt_scalar_mul(
-                cur, fq3.const(H.fq3_sub((1, 0, 0), r), self.device))
-            high = rq.ntt_scalar_mul(cur, fq3.const(r, self.device))
-            cur = torch.cat([low, high])
-        return cur
+        index bit, as (rows, 24) with rows = 2^ceil(log2(min(2^nv, max_rows))),
+        or (24, rows) in the bit-reversed t-layout; into `out` where given.
+        Skipped top variables fold their prod(1 - r_j) into every row
+        (``tables.eq_table``, a kernel on the card)."""
+        return tables.eq_table(point, max_rows, self.device, t_layout, out)

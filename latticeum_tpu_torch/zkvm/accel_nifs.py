@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from ..field import goldilocks as gl, mxu
@@ -24,7 +23,8 @@ from ..host.nifs import decomposition as dec, folding as fold
 from ..host.nifs import linearization as lin, nifs as nifs_mod
 from ..host.nifs.structs import CCCS, LCCCS, TAU
 from ..ring import decompose as dc, rq
-from . import accel_rounds, claims, comb
+from . import accel_rounds, claims, comb, tables
+from .tables import brev_on
 
 
 # copied from latticeum_tpu/zkvm/accel_rounds.py:463
@@ -47,21 +47,6 @@ def lin_c_signs(c_rings):
         else:
             return None
     return tuple(signs)
-
-
-# copied from latticeum_tpu/zkvm/accel_t.py:24
-def bitrev_indices(n_bits: int) -> np.ndarray:
-    n = 1 << n_bits
-    idx = np.arange(n)
-    out = np.zeros(n, dtype=np.int64)
-    for b in range(n_bits):
-        out |= ((idx >> b) & 1) << (n_bits - 1 - b)
-    return out
-
-
-def _brev(n):
-    return torch.from_numpy(bitrev_indices((n - 1).bit_length() if n > 1
-                                           else 0))
 
 
 class TorchWitness:
@@ -116,10 +101,8 @@ class TorchNifs:
         self._lin_sets = (comb.lin_sets(ccs.S, signs, ccs.t, dev)
                           if signs is not None else
                           comb.lin_sets_general(ccs.S, ccs.c, ccs.t, dev))
-        brev_cap = _brev(self._cap_pow2)
-        self._lin_row_pos = brev_cap.to(dev)[engine.rows]
-        self._brev_cap = brev_cap.to(dev)
-        self._fold_row_pos = _brev(ccs.m).to(dev)[engine.rows]
+        self._lin_row_pos = brev_on(self._cap_pow2, dev)[engine.rows]
+        self._fold_row_pos = brev_on(ccs.m, dev)[engine.rows]
 
     @property
     def device(self):
@@ -135,7 +118,7 @@ class TorchNifs:
         out = torch.zeros(lead + (TAU, 8, 3, npad), dtype=gl.DTYPE,
                           device=f_coeff.device)
         vals = torch.movedim(f_coeff.reshape(lead + (nf, TAU, 8)), -3, -1)
-        pos = _brev(npad).to(f_coeff.device)[:nf]
+        pos = brev_on(npad, f_coeff.device)[:nf]
         out[..., 0, pos] = vals
         return out.reshape(lead + (TAU, 24, npad))
 
@@ -168,11 +151,6 @@ class TorchNifs:
         return gl.to_int_lists(self._commit_many(f[None])[0])
 
     # -- tables -------------------------------------------------------------
-    def _eq_t(self, point, npad):
-        """eq table of `point` with npad rows in the bit-reversed t-layout."""
-        eq = self.e.eq_table(point, npad)
-        return eq.T[:, _brev(eq.shape[0]).to(eq.device)]
-
     def eqT(self, point):
         """(t, n, 24) M_j^T eq(point) rows."""
         return self.e.mt_eq_stack(self.e.eq_table(point, self._cap))
@@ -182,11 +160,11 @@ class TorchNifs:
         """(t+1, 24, m') stack: each M_j z segment-summed straight into
         bit-reversed row positions, then the eq(beta) row; m' = cap rounded
         up to a power of two."""
-        m = self._cap_pow2
-        mz = self.e.mz_stack(z, m, self._lin_row_pos)        # (t, m, 24)
-        eq = self.e.eq_table(beta_s, m)
-        eqt = eq.T[:, self._brev_cap]
-        return torch.cat([mz.transpose(1, 2), eqt[None]]).contiguous()
+        m, t = self._cap_pow2, self.ccs.t
+        g = torch.empty((t + 1, 24, m), dtype=gl.DTYPE, device=self.device)
+        g[:t] = self.e.mz_stack(z, m, self._lin_row_pos).transpose(1, 2)
+        self.e.eq_table(beta_s, m, t_layout=True, out=g[t])
+        return g
 
     def lin_prove(self, cm_i: CCCS, wit: TorchWitness, transcript, log=None):
         ccs = self.ccs
@@ -198,7 +176,8 @@ class TorchNifs:
         proof_sc, chals, final = accel_rounds.run_lin_rounds_factored(
             transcript, g, ccs.s, ccs.d + 1, self._lin_sets, beta_s, log=log)
         del g
-        eq_r = self._eq_t(chals, wit.f_hat.shape[-1])
+        eq_r = self.e.eq_table(chals, wit.f_hat.shape[-1],
+                               t_layout=True)
         v = gl.to_int_lists(claims.eval_fhat(wit.f_hat, eq_r))
         u = gl.to_int_lists(final[:ccs.t])
         transcript.absorb_slice(v)
@@ -225,7 +204,8 @@ class TorchNifs:
                     gl.sum_axis(gl.mul(bp[:, None, None], cms), 0))
         y_s = gl.to_int_lists(torch.cat([y0[None], cms]))
         x_s = dec.compute_x_s(cm_i.x_w, cm_i.h, p)
-        eq_r = self._eq_t(point, fhat_b.shape[-1])
+        eq_r = self.e.eq_table(point, fhat_b.shape[-1],
+                               t_layout=True)
         v_s = gl.to_int_lists(claims.eval_fhat(fhat_b, eq_r))
         heads = self.e.ints([[list(v) for v in x_s[k]] for k in range(p.K)])
         z_b = torch.cat([heads, w_b], dim=1)                  # (K, n, 24)
@@ -252,8 +232,9 @@ class TorchNifs:
           c_half = sum_{i,d} alpha_i^{d+1} f_hat[i][d]
                    + sum_j M_j (sum_i zeta_i^{j+1} z_i)
 
-        the challenged z per COO entry, segment-summed straight into
-        bit-reversed rows."""
+        the eq rows and the alpha-sums written in place by their kernels
+        (``tables``), then the challenged z per COO entry, segment-summed
+        straight into bit-reversed rows, added to each c row."""
         ccs, e, dev = self.ccs, self.e, self.device
         K, m, t = self.p.K, ccs.m, ccs.t
         apows = []
@@ -262,16 +243,15 @@ class TorchNifs:
             for _d in range(TAU):
                 pw = H.fq3_mul(pw, a)
                 apows.append(pw)
-        alpha = gl.from_int(apows, dev)                       # (2K*TAU, 3)
-        zeta = gl.from_int([[H.fq3_pow(zeta_s[i], j + 1) for j in range(t)]
-                            for i in range(2 * K)], dev)       # (2K, t, 3)
-
-        def half(lo, hi):
-            acc = None
-            for idx in range(lo * TAU, hi * TAU):
-                term = rq.ntt_scalar_mul_t(
-                    tail[idx], tuple(alpha[idx, c] for c in range(3)))
-                acc = term if acc is None else gl.add(acc, term)
+        alpha = gl.upload(gl.from_int(apows), dev)             # (2K*TAU, 3)
+        zeta = gl.upload(gl.from_int(
+            [[H.fq3_pow(zeta_s[i], j + 1) for j in range(t)]
+             for i in range(2 * K)]), dev)                     # (2K, t, 3)
+        head = torch.empty((5, 24, m), dtype=gl.DTYPE, device=dev)
+        for row, pt in zip((0, 2, 4), eq_points):
+            e.eq_table(pt, m, t_layout=True, out=head[row])
+        tables.head_alpha(tail, alpha, head[1], head[3])
+        for row, lo, hi in ((1, 0, K), (3, K, 2 * K)):
             zg = None
             for i in range(lo, hi):
                 zc = zeta[i][e.mats]                           # (nnz, 3)
@@ -279,11 +259,8 @@ class TorchNifs:
                                          tuple(zc[:, c] for c in range(3)))
                 zg = term if zg is None else gl.add(zg, term)
             mz = gl.segment_sum(e.coo_mul(zg), self._fold_row_pos, m)
-            return gl.add(acc, mz.T)
-
-        eqs = [self._eq_t(pt, m) for pt in eq_points]
-        return torch.stack([eqs[0], half(0, K), eqs[1], half(K, 2 * K),
-                            eqs[2]])
+            head[row] = gl.add(head[row], mz.T)
+        return head
 
     def fold_prove(self, cm_i_s, transcript, batches, log=None):
         p, ccs, dev = self.p, self.ccs, self.device

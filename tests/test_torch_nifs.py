@@ -238,7 +238,8 @@ def test_witness_pipeline_matches_host_witness():
         assert dn.commit(w.f) == scheme.commit_host(wit.f)
         point = [tuple(int(v) for v in np.random.default_rng(2).integers(
             0, gl.P, 3, dtype=np.uint64)) for _ in range(ccs.s)]
-        v = claims.eval_fhat(w.f_hat, dn._eq_t(point, w.f_hat.shape[-1]))
+        v = claims.eval_fhat(w.f_hat, dn.e.eq_table(
+            point, w.f_hat.shape[-1], t_layout=True))
         assert gl.to_int_lists(v) == lin.evaluate_mles_host(wit.f_hat, point)
 
 
