@@ -33,8 +33,16 @@ Phases (each prints its own lines; any failure exits non-zero):
               the card, exact integer equality, at a small shape and at the
               production round shape, with kernel and twin times; the lin
               kernels also with random ring constants c_i (not +-1) at the
-              production shape, timed;
-  5. claims   the digit-plane kernels (digit_split, plane_recombine) against
+              production shape, timed; lin_recon_round (csrc/comb.cu)
+              against its twin at the main path's reconstruction rounds
+              (126 rows at 8 columns, then folded to 4 and 2; signs and
+              ring constants) and its fold alone, each timed by a CUDA
+              graph beside its bound and the launch floor;
+  5. ring     crt and icrt (ring/rq.py, csrc/ring.cu) against their dense
+              twins at 15 x 98815 rings (dec's crt(ks)), 19,763 and
+              98,815, with rows of p - 1 and edge values, each timed by a
+              CUDA graph beside its bound;
+  6. claims   the digit-plane kernels (digit_split, plane_recombine) against
               their twins at edge shapes (several chunks, every padding) and
               at the four production shapes of the evaluation claims (dec u,
               fold eta, dec v, lin v); ring_contract against the slot-wise
@@ -42,7 +50,7 @@ Phases (each prints its own lines; any failure exits non-zero):
               the torch._int_mm products, the recombination (CUDA events
               over 3 calls, the record, and a CUDA graph of 20), the whole
               contraction and the slot-wise form, each beside its bound;
-  6. fiat-shamir  round_tail (crypto/challenger.py, csrc/challenger.cu)
+  7. fiat-shamir  round_tail (crypto/challenger.py, csrc/challenger.cu)
               against its twin, bit for bit, at the production lin and fold
               round shapes and unweighted (the lin reconstruction rounds),
               each at every pending length 0 ... 11, and over a chain of 34
@@ -51,20 +59,20 @@ Phases (each prints its own lines; any failure exits non-zero):
               (CUDA graph) beside its bound, the chain of its
               permutations alone (the latency floor) and the design's
               critical path from the latency probes;
-  7. tables   eq_table and head_alpha (zkvm/tables.py, csrc/tables.cu)
+  8. tables   eq_table and head_alpha (zkvm/tables.py, csrc/tables.cu)
               against their twins, bit for bit: eq_table in both layouts
               at 1 ... 2^17 rows, truncated (skipped top variables) and
               not, with random points and with every coordinate p - 1;
               head_alpha at the production tail 90 x 24 x 2^17 with rows
               of p - 1; each timed (CUDA graph) beside its bound and twin;
-  8. small    two chained folds of the port on the card against the host
+  9. small    two chained folds of the port on the card against the host
               NIFS on the test CCS (transcript, proofs, accumulator, the
               host verifier), with the row-constant and with a general
               dense Ajtai scheme, and with CCS constants that are not +-1
               (the lin comb kernels with ring constants, ROADMAP C.h4); one
               production-size general commit (kappa 32, N 98815, 14
               witnesses) against the plain chunked matvec, timed;
-  9. mesh     the sharded sum-checks of latticeum_tpu_torch/parallel/ at
+  10. mesh     the sharded sum-checks of latticeum_tpu_torch/parallel/ at
               the production shapes (the fold at m = 2^17, K = 15; the lin
               with the zkVM's 126 rows at its truncated width 2^14 of
               2^17; the row-constant Ajtai commit at kappa 32) in worlds of
@@ -76,27 +84,29 @@ Phases (each prints its own lines; any failure exits non-zero):
               all-reduce per sharded round and one gather a sum-check, and
               at 1 rank one fetch per sum-check; times beside the
               unsharded ones (no multi-GPU scaling: one card);
-  10. main    TorchZkVmProver(device="cuda") at default_params(): 3 steps of
+  11. main    TorchZkVmProver(device="cuda") at default_params(): 3 steps of
               xorshift_guest(64) with acc_comm[0] pinned after each step
               (a checkpoint written after step 2), then 2 steps of the
               bench's fib guest; every fold of both passes the host NIFS
               verifier with the same folded accumulator; launch counts of
               every kernel (perm8 and sponge8 included: the memory and code
               trees of each prove_vm) > 0, eq_table at least 10 a fold and
-              head_alpha one a fold, and ring_contract called; each
+              head_alpha one a fold, crt and icrt at least 5 a step,
+              lin_recon_round once a reconstruction round and twice more
+              (its folds) a lin sum-check, and ring_contract called; each
               prove_vm's tree time and its parts; every lin and fold
               sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
               torch.cuda.set_sync_debug_mode("error"), no other
               synchronizing call;
-  11. resume a fresh TorchZkVmProver(debug=True) resumes from the step-2
+  12. resume a fresh TorchZkVmProver(debug=True) resumes from the step-2
               checkpoint and folds step 3: it must equal the continuous run
               (acc_comm, z_i_comm, ivc_step_comm, the accumulator's h, r, v,
               cm, u, the collector's vars) and reach the pinned acc_comm[0];
               its relation check ran; a step whose z was changed must raise;
-  12. cli    python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
+  13. cli    python -m latticeum_tpu_torch.zkvm.cli --builtin fib100
               --max-steps 1 --vm-size 1mb --debug prints its JSON line;
-  13. replay the same 3 xorshift steps with the JAX package's stale
+  14. replay the same 3 xorshift steps with the JAX package's stale
               lin-reconstruction betas replayed (ROADMAP C.h9: the first lin
               call's betas handed to every later call's reconstruction
               rounds) must give the acc_comm[0] values that package
@@ -132,7 +142,11 @@ their functions at the probes' SASS: the doubling's 2 (rows - 1) Fq3
 multiplies for eq_table; for head_alpha the least of two ways to form
 the linear sums unreduced (head_alpha_ops: 64x64 -> 128-bit
 multiply-adds into 192-bit sums, one reduction an output); the bytes
-bound both.
+bound both.  crt and icrt are counted from the butterfly networks
+(CRT_OPS: 48 and 72 multiplies, 85 adds or subtracts a ring, never the
+dense twin's 576 products) at the probes' SASS, beside their 384 bytes a
+ring; lin_recon_round from lin_body's field operations with the eq row
+as its weight (recon_ops), beside its launch floor.
 """
 
 import contextlib
@@ -269,11 +283,15 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "plane_recombine": "latticeum_tpu/field/mxu.py:91",
                "round_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:129",
                "eq_table": "latticeum_tpu/zkvm/accel.py:141",
-               "head_alpha": "latticeum_tpu/zkvm/accel_nifs.py:997"}
+               "head_alpha": "latticeum_tpu/zkvm/accel_nifs.py:997",
+               "crt": "latticeum_tpu/ring/rq.py:61",
+               "lin_recon_round": "latticeum_tpu/zkvm/accel_dev_fs.py:212"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
 CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
 TABLES_SOURCE = "latticeum_tpu_torch/csrc/tables.cu"
+RING_SOURCE = "latticeum_tpu_torch/csrc/ring.cu"
+COMB_SOURCE = "latticeum_tpu_torch/csrc/comb.cu"
 MXU_KERNELS = ("digit_split", "plane_recombine")
 # The instantiation whose SASS sets the per-permutation work of the bounds.
 PERM8_ONE_LANE = "perm8_kernelILi1EE"
@@ -286,6 +304,13 @@ DIGIT_OPS = 8 * 4
 # besides its 3 x 81 int64 sums, two Horner chains of 17 steps over the
 # digit weights, the nonresidue, the running sum.
 RECOMBINE_OPS = {"mul": 34, "add": 36, "mul_w": 1}
+# One ring element of the butterfly networks (csrc/ring.cu, ref_impl):
+# crt's stages 36 multiplies, 48 adds, 36 subtracts, its homogenisation 12
+# multiplies and a negation; icrt's dehomogenisation 12 and a negation,
+# two inverse stages 24 multiplies, 24 adds, 24 subtracts, the stage-1
+# inverse 36 multiplies, 12 adds, 24 subtracts.
+CRT_OPS = {"crt": {"mul": 48, "add": 48, "sub": 37},
+           "icrt": {"mul": 72, "add": 36, "sub": 49}}
 
 
 def log(msg):
@@ -322,7 +347,8 @@ def main():
     from latticeum_tpu_torch.crypto import challenger, poseidon2
     from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
-    from latticeum_tpu_torch.zkvm import comb, tables
+    from latticeum_tpu_torch.ring import rq
+    from latticeum_tpu_torch.zkvm import accel_rounds, comb, tables
 
     dev = torch.device("cuda")
     card, rate, mix, perm8_sass, perm16_sass, lat = device_and_build(
@@ -348,6 +374,11 @@ def main():
         fail("the CCS lin constants are not all +-1")
     records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
                             dev, rate, mix) + records
+    records += recon_checks(torch, np, gl, comb, accel_rounds, prover, dev,
+                            rate, mix)
+
+    phase("ring")
+    records += ring_checks(torch, np, gl, rq, dev, rate, mix)
 
     phase("claims")
     records += claims_checks(torch, np, gl, mxu, prover, dev, rate, mix)
@@ -376,6 +407,7 @@ def main():
     poseidon2.sponge8.launches = 0
     challenger.round_tail.launches = 0
     tables.reset_launches()
+    rq.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     with one_fetch_per_sumcheck(torch) as sumchecks:
@@ -390,6 +422,8 @@ def main():
     launches.update({w.__name__: w.launches for w in mxu.KERNELS})
     launches["round_tail"] = challenger.round_tail.launches
     launches.update({k.__name__: k.launches for k in tables.KERNELS})
+    launches["crt"] = rq.crt.launches + rq.icrt.launches
+    launches["lin_recon_round"] = comb.lin_recon_round.launches
     contractions = mxu.ring_contract.calls
     log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
         f"{sumchecks['fold']} fold, each with exactly one device -> host "
@@ -408,6 +442,16 @@ def main():
         fail(f"{len(folds)} folds launched eq_table {launches['eq_table']} "
              f"times (at least 10 a fold) and head_alpha "
              f"{launches['head_alpha']} (one a fold)")
+    if not rq.crt.launches or not rq.icrt.launches or \
+            launches["crt"] < 5 * len(folds):
+        fail(f"{len(folds)} steps launched crt {rq.crt.launches} and icrt "
+             f"{rq.icrt.launches} times (at least 5 a step in all)")
+    recon_rounds = ccs.s - accel_rounds._factored_rounds(
+        prover.dn._cap_pow2, ccs.s)
+    if launches["lin_recon_round"] != sumchecks["lin"] * (recon_rounds + 2):
+        fail(f"{sumchecks['lin']} lin sum-checks launched lin_recon_round "
+             f"{launches['lin_recon_round']} times, not {recon_rounds} "
+             "rounds and 2 folds each")
     t0 = time.time()
     for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
         if prover.verify_fold(acc, cm_i, proof) != folded:
@@ -750,6 +794,17 @@ def lin_ops(sets, q, npts, fold):
         if fold:
             terms += [(2 * k, SUB3), (2 * k, MUL3), (2 * k, ADD3)]
     return tally((8 * q, tally(*terms)),)
+
+
+def recon_ops(sets, q, npts, fold):
+    """Field operations of one reconstruction round (csrc/comb.cu lin_body
+    with EQ): the lin comb's, with the eq row's e_t times the scale as the
+    weight (its step, two multiplies by the scale, one add a point; its
+    own fold) where the comb reads Tc."""
+    eq = [(1, SUB3), (2, MUL3), (npts, ADD3)]
+    if fold:
+        eq += [(2, SUB3), (2, MUL3), (2, ADD3)]
+    return tally((1, lin_ops(sets, q, npts, fold)), (8 * q, tally(*eq)))
 
 
 def head_alpha_ops(m, half):
@@ -1377,6 +1432,142 @@ def tables_checks(torch, np, gl, prover, dev, rate, mix):
     del tail, alpha, got, want
     torch.cuda.empty_cache()
     return records
+
+
+def ring_checks(torch, np, gl, rq, dev, rate, mix):
+    """crt and icrt (ring/rq.py, csrc/ring.cu) against their dense twins on
+    the card, bit for bit, at the main path's shapes: dec's crt(ks) over
+    (15, 98815) rings and build_witness's 19,763 and 98,815, each with a
+    row of p - 1 and the edge values in every position.  Each timed by a
+    CUDA graph of 20 beside its bound, each twin by CUDA events over one
+    call.  Returns crt's record at (15, 98815)."""
+    rng = np.random.default_rng(19)
+    edges = np.array([0, 1, 0xFFFFFFFF, 1 << 32, gl.P - 1, 2], np.uint64)
+
+    def rings(shape):
+        u = rng.integers(0, gl.P, shape + (24,), dtype=np.uint64)
+        flat = u.reshape(-1, 24)
+        flat[0] = gl.P - 1
+        flat[1:1 + len(edges)] = edges[:, None]
+        flat[1 + len(edges)] = np.resize(edges, 24)
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    worst, rec = 0, None
+    for shape in ((15, 98815), (19763,), (98815,)):
+        x = rings(shape)
+        n = x.numel() // 24
+        for fn, twin in ((rq.crt, rq.crt_twin), (rq.icrt, rq.icrt_twin)):
+            name = fn.__name__
+            e = u64_err(gl, np, fn(x), twin(x))
+            worst = max(worst, e)
+            if e:
+                fail(f"{name} {shape}: max_abs_err={e} against its twin")
+            ms = graph_ms(torch, lambda: fn(x), 20)
+            plain = cuda_ms(torch, lambda: twin(x), 1)
+            nbytes = 8 * (2 * 24 * n + 27)
+            work = pipes(CRT_OPS[name], mix)
+            work = {c: n * v for c, v in work.items()}
+            b_ms, _, limit = bound(rate, nbytes, work)
+            log(f"{name} {shape + (24,)}: bit-exact with the twin; "
+                f"{ms:.4f} ms (CUDA graph of 20), bound {b_ms:.4f} ms by "
+                f"{limit}, {100 * b_ms / ms:.1f} % of it; twin "
+                f"{plain:.3f} ms")
+            if name == "crt" and shape == (15, 98815):
+                rec = record("crt", RING_SOURCE, 0, ms, plain, rate, nbytes,
+                             work)
+        del x
+    rec["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return [rec]
+
+
+def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix):
+    """lin_recon_round (zkvm/comb.py, csrc/comb.cu) against its twin on the
+    card, bit for bit, at the main path's reconstruction rounds: the
+    zkVM's t + 1 rows at the width the factored rounds leave, the first
+    round as it is, then each folded round, at degree + 1 points, with the
+    CCS's +-1 signs and with random ring constants; the fold alone of the
+    Mz rows into column 0 and the final fold of every row, scaled; rows of
+    p - 1.  Each timed by a CUDA graph of 50 beside its bound and the
+    launch floor (the fold alone on one row).  Returns the record of the
+    first folded round with signs."""
+    ccs, sets = prover.ccs, prover.dn._lin_sets
+    rng = np.random.default_rng(23)
+
+    def rnd(*shape):
+        return torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, shape, dtype=np.uint64))).to(dev)
+
+    sets_ring = comb.lin_sets_general(
+        sets.S, [[int(v) for v in rng.integers(0, gl.P, 24, dtype=np.uint64)]
+                 for _ in sets.S], sets.rows, dev)
+    n_fact = accel_rounds._factored_rounds(prover.dn._cap_pow2, ccs.s)
+    width, npts, rows = 1 << (ccs.s - n_fact), ccs.d + 2, ccs.t + 1
+    log(f"lin reconstruction: {ccs.s - n_fact} rounds after {n_fact} "
+        f"factored, {rows} rows at {width} columns, {npts} points")
+    worst, rec = 0, None
+    for label, ls in (("signs", sets), ("ring constants", sets_ring)):
+        w = width
+        for first in (True, False):
+            while w >= (2 if first else 4):
+                X = rnd(rows, 24, w)
+                X[0] = gl.P_I64 - 1
+                X[-1, :, :w // 2] = gl.P_I64 - 1
+                args = (X, ls, npts, rnd(3)) + (() if first else (rnd(3),))
+                got = comb.lin_recon_round(*args)
+                want = comb.lin_recon_round_twin(*args)
+                e = u64_err(gl, np, got, want)
+                worst = max(worst, e)
+                if e:
+                    fail(f"lin_recon_round {label} X{tuple(X.shape)} "
+                         f"fold={not first}: max_abs_err={e}")
+                q = w // (2 if first else 4)
+                ms = graph_ms(torch, lambda: comb.lin_recon_round(*args), 50)
+                plain = cuda_ms(torch, lambda: comb.lin_recon_round_twin(
+                    *args), 1)
+                nbytes = 8 * (X.numel() + npts * 24 + 3 * (1 + (not first))
+                              + (0 if first else rows * 24 * 2 * q)
+                              + (0 if ls.rings is None
+                                 else ls.rings.numel())) \
+                    + 4 * (ls.off.numel() + ls.idx.numel())
+                work = pipes(recon_ops(ls, q, npts, not first), mix)
+                b_ms, by, limit = bound(rate, nbytes, work)
+                log(f"lin_recon_round {label} X{tuple(X.shape)} "
+                    f"{'first' if first else 'folded'}: bit-exact; "
+                    f"{ms:.4f} ms (CUDA graph of 50), bound {b_ms:.5f} ms "
+                    f"by {limit}, {100 * b_ms / ms:.2f} % of it; twin "
+                    f"{plain:.3f} ms")
+                if label == "signs" and not first and rec is None:
+                    rec = record("lin_recon_round", COMB_SOURCE, 0, ms,
+                                 plain, rate, nbytes, work)
+                if first:
+                    break
+                w //= 2
+    for rows_f, w_out, scaled in ((rows - 1, width, False), (rows, 1, True)):
+        X, r3 = rnd(rows_f, 24, 2), rnd(3)
+        X[1] = gl.P_I64 - 1
+        scale = rnd(3) if scaled else None
+        got = torch.zeros((rows_f, 24, w_out), dtype=gl.DTYPE, device=dev)
+        want = got.clone()
+        comb.lin_recon_fold(X, r3, got, scale)
+        comb.lin_recon_fold_twin(X, r3, want, scale)
+        e = u64_err(gl, np, got, want)
+        worst = max(worst, e)
+        if e:
+            fail(f"lin_recon_fold {rows_f} rows scaled={scaled}: "
+                 f"max_abs_err={e}")
+        ms = graph_ms(torch, lambda: comb.lin_recon_fold(X, r3, got, scale),
+                      50)
+        log(f"lin_recon_fold {rows_f} x 24 x 2 -> column 0 of {w_out}"
+            f"{', scaled' if scaled else ''}: bit-exact; {ms:.4f} ms (CUDA "
+            "graph of 50)")
+    X, r3, out = rnd(1, 24, 2), rnd(3), rnd(1, 24, 1)
+    floor = graph_ms(torch, lambda: comb.lin_recon_fold(X, r3, out), 50)
+    log(f"lin_recon_round launch floor (the fold alone on one row): "
+        f"{floor:.4f} ms (CUDA graph of 50); the record's round at "
+        f"{rec['ms'] / floor:.1f} x it")
+    rec["max_abs_err"] = worst
+    return [rec]
 
 
 MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))

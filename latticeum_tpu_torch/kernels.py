@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
-           "tables.cu")
+           "tables.cu", "ring.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -93,28 +93,36 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The argument types of every C entry point of the library (each returns
+# its cudaError_t as an int): a pointer or stream, an int, a long long.
+SIGNATURES = {
+    "lt_fold_round0": [_VP] * 5 + [_I32, _I64, _I32, _VP],
+    "lt_fold_roundr": [_VP] * 6 + [_I32, _I64, _VP, _I32, _VP],
+    "lt_lin_round0": [_VP] * 6 + [_I32, _VP, _VP, _I64, _I32, _VP],
+    "lt_lin_roundr": [_VP] * 7 + [_I32, _VP, _VP, _I64, _VP, _I32, _VP],
+    "lt_lin_recon_round": [_VP] * 6 + [_I32, _VP, _VP, _I64, _VP, _VP, _I32,
+                                       _I32, _VP],
+    "lt_lin_recon_fold": [_VP] * 2 + [_I32, _I64, _I64, _VP, _VP, _VP],
+    "lt_perm8": [_VP] * 3 + [_I64, _I32, _VP],
+    "lt_sponge8": [_VP] * 3 + [_I64, _I64, _I32, _VP],
+    "lt_digit_split": [_VP] * 2 + [_I32] * 2 + [_I64] + [_I32] * 5 + [_VP],
+    "lt_plane_recombine": [_VP] * 2 + [_I64] * 4 + [_VP],
+    "lt_round_tail": [_VP] * 9 + [_I32] * 7 + [_VP],
+    "lt_perm16_chain": [_VP] * 2 + [_I32, _VP],
+    "lt_eq_table": [_VP] * 2 + [_I32] * 2 + [_VP],
+    "lt_head_alpha": [_VP] * 4 + [_I32, _I64, _VP],
+    "lt_crt": [_VP] * 2 + [_I64, _I32, _VP, _VP],
+}
+
+
 def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is not None:
         return _lib
     so = ctypes.CDLL(str(build()))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sigs = {
-        "lt_fold_round0": [vp] * 5 + [i32, i64, i32, vp],
-        "lt_fold_roundr": [vp] * 6 + [i32, i64, vp, i32, vp],
-        "lt_lin_round0": [vp] * 6 + [i32, vp, vp, i64, i32, vp],
-        "lt_lin_roundr": [vp] * 7 + [i32, vp, vp, i64, vp, i32, vp],
-        "lt_perm8": [vp] * 3 + [i64, i32, vp],
-        "lt_sponge8": [vp] * 3 + [i64, i64, i32, vp],
-        "lt_digit_split": [vp] * 2 + [i32] * 2 + [i64] + [i32] * 5 + [vp],
-        "lt_plane_recombine": [vp] * 2 + [i64] * 4 + [vp],
-        "lt_round_tail": [vp] * 9 + [i32] * 7 + [vp],
-        "lt_perm16_chain": [vp] * 2 + [i32, vp],
-        "lt_eq_table": [vp] * 2 + [i32] * 2 + [vp],
-        "lt_head_alpha": [vp] * 4 + [i32, i64, vp],
-    }
-    for name, argtypes in sigs.items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(so, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -7,7 +7,12 @@ ring axis last, (..., 24); the t-layout keeps it second to last, (..., 24, n),
 with the hypercube on the minor axis.
 
 crt/icrt are the exact 24x24 F_q-linear maps of the reference butterfly
-network (``ring/ref_impl.py``), applied as field multiply-adds.
+network (``ring/ref_impl.py``).  On a card each is one launch of the
+butterfly network in ``csrc/ring.cu`` (counted in ``crt.launches`` and
+``icrt.launches``; counterparts of ``latticeum_tpu/ring/rq.py:61`` ``crt``
+and ``:98`` ``icrt``); on the CPU the plain-torch twins ``crt_twin`` and
+``icrt_twin`` apply the maps as a dense matvec of field multiply-adds.
+Any other device raises.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import torch
 
 from ..field import fq3, goldilocks as gl
 from ..host.ring import ref_impl
+from ..kernels import launch as _launch, ptr as _ptr, route as _route, \
+    stream as _stream
 
 D = ref_impl.D
 N_SLOTS = ref_impl.N
@@ -24,6 +31,12 @@ N_SLOTS = ref_impl.N
 _CRT_U64 = np.array(ref_impl.crt_matrix(), dtype=np.uint64)
 _ICRT_U64 = np.array(ref_impl.icrt_matrix(), dtype=np.uint64)
 _ROWS_PER_CHUNK = 1 << 15
+# The kernel's constants, in csrc/ring.cu's order: the 24 roots, then KAPPA,
+# EIGHT_INV and FOUR_INV.
+_KERNEL_CONSTS = torch.from_numpy(gl.to_i64_bits(np.array(
+    ref_impl.ROOTS + [ref_impl.KAPPA, ref_impl.EIGHT_INV, ref_impl.FOUR_INV],
+    dtype=np.uint64)))
+_consts_on = {}
 
 
 def _matvec24(mat_u64, x):
@@ -39,14 +52,50 @@ def _matvec24(mat_u64, x):
     return out.reshape(x.shape)
 
 
+def crt_twin(x):
+    """Plain-torch CRT: the dense 24 x 24 matvec."""
+    return _matvec24(_CRT_U64, x)
+
+
+def icrt_twin(x):
+    """Plain-torch ICRT: the dense 24 x 24 matvec."""
+    return _matvec24(_ICRT_U64, x)
+
+
+def _kernel_consts(device):
+    """The kernel's constants on `device`, uploaded once per device."""
+    if device not in _consts_on:
+        _consts_on[device] = gl.upload(_KERNEL_CONSTS, device)
+    return _consts_on[device]
+
+
+def _ring_map(wrapper, twin, inverse, x):
+    if x.dtype != gl.DTYPE:
+        raise TypeError(f"{wrapper.__name__}: dtype {x.dtype}, expected "
+                        "int64")
+    if x.dim() == 0 or x.shape[-1] != D:
+        raise ValueError(f"{wrapper.__name__}: shape {tuple(x.shape)}, "
+                         f"expected (..., {D})")
+    if _route((x,)) == "cpu":
+        return twin(x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    n = x.numel() // D
+    if n:
+        _launch("lt_crt", _ptr(x), _ptr(out), n, int(inverse),
+                _ptr(_kernel_consts(x.device)), _stream())
+        wrapper.launches += 1
+    return out
+
+
 def crt(x):
     """Coefficient form -> NTT form, (..., 24)."""
-    return _matvec24(_CRT_U64, x)
+    return _ring_map(crt, crt_twin, False, x)
 
 
 def icrt(x):
     """NTT form -> coefficient form, (..., 24)."""
-    return _matvec24(_ICRT_U64, x)
+    return _ring_map(icrt, icrt_twin, True, x)
 
 
 def _as_slots(x):
@@ -107,3 +156,14 @@ def rot(c):
     out = torch.cat([gl.neg(last), c[..., :D - 1]], dim=-1)
     out[..., 12:13] = gl.add(out[..., 12:13], last)
     return out
+
+
+KERNELS = (crt, icrt)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+reset_launches()

@@ -2,7 +2,7 @@
 one call.
 
     python3 latticeum_tpu_torch/step_timing.py [--root DIR] [--steps N]
-        [--profile] [--label NAME] [--combs | --tails]
+        [--profile] [--label NAME] [--combs | --tails | --peak]
 
 Proves ``--steps`` steps (default 3) of ``xorshift_guest(64)`` on
 ``new_vm_1mb()`` with ``TorchZkVmProver(default_params(), device="cuda")``
@@ -21,7 +21,12 @@ shapes and unweighted, ``perm16_chain`` at each one's permutation count
 (CUDA graphs of 50) and ``plane_recombine`` at the four production shapes
 of the claims (CUDA events over 3 calls, as ``chip_smoke.py`` times it
 since it was written, and CUDA graphs of 20), on inputs made from fixed
-seeds, and prints their ms.  With
+seeds, and prints their ms; ``--peak`` runs that checkout's
+``chip_smoke.py`` main path alone (3 xorshift steps with a checkpoint
+after step 2, then 2 fib steps, after one warm-up step) and prints its
+peak allocated bytes and its peak requested bytes (the sizes asked for,
+before the caching allocator rounds them or hands out a larger cached
+block).  With
 ``--profile`` the lin and fold sum-checks of the third-to-last step's fold
 run under ``torch.profiler`` (``sumcheck_busy``: the summed durations of
 the kernels each one launched, and their number, beside the unprofiled
@@ -32,12 +37,15 @@ the durations of the kernels it traced, beside the fold's wall time, and
 ``device_by_kernel`` lists its 25 largest kernels by name (launches and
 summed device seconds), ``device_ranges`` the calls, kernels and their
 summed device seconds of the eq tables (``Engine.eq_table``, every layout
-and caller) and of the fold head (``TorchNifs._build_head``, its three eq
-tables included), each traced as a ``torch.profiler.record_function``
-range (the kernels that ran inside its span on the device), and
-``device_htod`` the fold's host -> device copies, with those made from
-pageable memory apart (each waits for the stream before it).  Those three
-steps' times include the profilers.
+and caller), the COO matvecs (``Engine.mz_stack``, ``Engine.mt_eq_stack``),
+the fold head (``TorchNifs._build_head``, its three eq tables included),
+the ring's CRT and ICRT (``rq.crt``, ``rq.icrt``, every caller) and the lin
+sum-check's reconstruction rounds (``accel_rounds._lin_reconstruct``),
+each traced as a ``torch.profiler.record_function`` range (the kernels
+that ran inside its span on the device), and ``device_htod`` the fold's
+host -> device copies, with those made from pageable memory apart (each
+waits for the stream before it).  Those three steps' times include the
+profilers.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import argparse
 import bisect
 import contextlib
 import cProfile
+import functools
 import io
 import json
 import os
@@ -65,6 +74,7 @@ def main(argv=None):
     modes = ap.add_mutually_exclusive_group()
     modes.add_argument("--combs", action="store_true")
     modes.add_argument("--tails", action="store_true")
+    modes.add_argument("--peak", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -86,6 +96,8 @@ def main(argv=None):
         return comb_times(args, card, prover, torch)
     if args.tails:
         return tail_times(args, card, prover, torch)
+    if args.peak:
+        return main_path_peak(args, card, prover, torch)
     sumchecks = {"lin": [], "fold": []}
     inner, folds, report = prover.fold, [], {}
     for kind in sumchecks:
@@ -171,15 +183,23 @@ TOP_KERNELS = 25
 
 @contextlib.contextmanager
 def traced_ranges(torch):
-    """Engine.eq_table and TorchNifs._build_head, each call inside a
-    torch.profiler.record_function range named RANGE + its name."""
+    """Engine.eq_table, Engine.mz_stack, Engine.mt_eq_stack,
+    TorchNifs._build_head, rq.crt, rq.icrt and accel_rounds.
+    _lin_reconstruct, each call inside a torch.profiler.record_function
+    range named RANGE + its name."""
+    from latticeum_tpu_torch.ring import rq
+    from latticeum_tpu_torch.zkvm import accel_rounds
     from latticeum_tpu_torch.zkvm.accel import Engine
     from latticeum_tpu_torch.zkvm.accel_nifs import TorchNifs
-    saved = [(cls, name, getattr(cls, name))
-             for cls, name in ((Engine, "eq_table"),
-                               (TorchNifs, "_build_head"))]
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name in ((Engine, "eq_table"), (Engine, "mz_stack"),
+                                 (Engine, "mt_eq_stack"),
+                                 (TorchNifs, "_build_head"), (rq, "crt"),
+                                 (rq, "icrt"),
+                                 (accel_rounds, "_lin_reconstruct"))]
 
     def ranged(name, fn):
+        @functools.wraps(fn)      # a kernel wrapper's launch count too
         def wrapped(*args, **kwargs):
             with torch.profiler.record_function(RANGE + name):
                 return fn(*args, **kwargs)
@@ -336,6 +356,40 @@ def tail_times(args, card, prover, torch):
         del O
     print(json.dumps({"label": args.label, "root": args.root, "card": card,
                       "tail_ms": ms}), flush=True)
+    return 0
+
+
+def main_path_peak(args, card, prover, torch):
+    """The peak memory of the checkout's chip_smoke.py main path, run
+    alone after one warm-up step."""
+    import shutil
+    import tempfile
+
+    import chip_smoke
+    from latticeum_tpu_torch.host.vm.assembler import (fib_const_guest,
+                                                       xorshift_guest)
+    from latticeum_tpu_torch.host.vm.vm import new_vm_1mb
+    chip_smoke.prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)),
+                     1, "warm-up", torch)
+    chip_smoke.record_folds(prover)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ckdir = tempfile.mkdtemp(prefix="step_timing_ckpt_")
+    try:
+        with chip_smoke.one_fetch_per_sumcheck(torch):
+            chip_smoke.prove(prover, new_vm_1mb().load_elf_data(
+                xorshift_guest(64)), 3, "xorshift_guest(64)", torch,
+                checkpoint_dir=ckdir, checkpoint_every=2)
+            chip_smoke.prove(prover, new_vm_1mb().load_elf_data(
+                fib_const_guest(chip_smoke.FIB_RESULT)), 2,
+                "fib_const_guest", torch)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    stats = torch.cuda.memory_stats()
+    print(json.dumps({"label": args.label, "root": args.root, "card": card,
+                      "allocated_peak": stats["allocated_bytes.all.peak"],
+                      "requested_peak": stats["requested_bytes.all.peak"]}),
+          flush=True)
     return 0
 
 

@@ -17,8 +17,9 @@ its recorded samples (which the collector's ``ReplayTranscript`` replays)
 and its challenger (``_chain_bookkeep``, :492-513, and
 ``accel_dev_fs.finish_fixed_phase_host``, :372-416).  ``fetches`` counts
 those copies.  Every value the chain needs from the host (the exported
-challenger, the betas and eq points, the Lagrange rows, the reconstruction
-eq table) is uploaded before its first round.
+challenger, the betas and eq points, the Lagrange rows) is uploaded
+before its first round, and the reconstruction eq table's factors before
+the reconstruction, each in a pinned copy that does not wait.
 
 Messages and challenges are bit-identical to the host path ``nifs/*.prove``
 (host sum-check, host transcript).  Shrink rounds run until the arrays are
@@ -27,8 +28,8 @@ truncated (its width below 2^nv, ROADMAP C.h5), the remaining variables
 are finished by unfactored rounds over an eq table rebuilt from this call's
 betas, scaled by prod eqf(beta_j, r_j) over the device challenges; the
 betas are arguments of every call, never kept from an earlier one (the
-fault of the JAX package's device path, ROADMAP C.h9).  Those rounds are
-tiny and stay plain torch up to their round tail.
+fault of the JAX package's device path, ROADMAP C.h9).  Each of those
+rounds is one ``comb.lin_recon_round`` launch and its round tail.
 
 All arrays are t-layout (rows, 24, n) with a bit-reversed hypercube, so a
 round pairs the two contiguous halves.
@@ -51,12 +52,9 @@ import torch
 
 from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
-from ..host import backend as B
 from ..host.field import host as H
-from ..host.poly import mle as mle_mod
-from ..host.ring import rq as rq_host
 from ..ring import rq
-from . import comb
+from . import comb, tables
 
 P = gl.P
 fetches = 0          # device -> host copies made by the sum-checks
@@ -94,25 +92,6 @@ def fold_lagrange(npts_h, n_msg):
         lag[tbl, :, npts_h + 2 + tbl] = ext_c[:, 1]
     lag[2, :, :npts_h] = ext_h
     return lag
-
-
-# copied from latticeum_tpu/zkvm/accel_t.py:33
-def build_eq_table_rev(r_fq3_list, max_rows=None):
-    """eq table with bit-REVERSED index order: bit (nv-1-i) = x_i.
-
-    Same doubling as mle.build_eq_table but processing variables in reverse
-    so variable 0 lands on the top bit."""
-    cur = mle_mod.from_rings([H.ntt_from_u64(1)], 0)
-    for r in reversed(r_fq3_list):
-        rd = mle_mod.fq3_const(r)
-        one_minus = mle_mod.fq3_const(H.fq3_sub((1, 0, 0), r))
-        low = rq_host.ntt_scalar_mul(cur, one_minus)
-        high = rq_host.ntt_scalar_mul(cur, rd)
-        cur = (B.xp.concatenate([low[0], high[0]]),
-               B.xp.concatenate([low[1], high[1]]))
-    if max_rows is not None:
-        cur = (cur[0][:max_rows], cur[1][:max_rows])
-    return cur
 
 
 def mu_powers(mu_s, K, TAU=3):
@@ -218,37 +197,39 @@ def _eqf_product(betas, chals):
     return out
 
 
-def _lin_reconstruct(mz, nv, r, degree, sets, tab, scale, state, pend0,
+def _lin_reconstruct(mz, nv, r, degree, sets, betas, scale, state, pend0,
                      msgs, chals):
-    """Unfactored rounds r..nv-1 after the truncated Mz rows are one
-    column wide (mz (t, 24, 1)): their finals at column 0 of a 2^(nv-r)
-    wide table, and the eq row `tab` (2^(nv-r), 24), the eq table of the
-    remaining betas, scaled by `scale` = prod eqf(beta_j, r_j) over the
-    rounds before.  Each round's message is its plain sums at degree+1
-    points.  Returns the final rows [Mz..., eq]."""
-    t_rows = mz.shape[0]
-    cur = torch.zeros((t_rows + 1, 24, tab.shape[0]), dtype=gl.DTYPE,
-                      device=mz.device)
-    cur[:t_rows, :, 0] = mz[:, :, 0]
-    cur[t_rows] = rq.ntt_scalar_mul_t(tab.T.contiguous(), scale)
-    while r < nv:
-        half = cur.shape[-1] // 2
-        v0, v1 = cur[..., :half], cur[..., half:]
-        step = gl.sub(v1, v0)
-        pts = [v0]
-        for _t in range(degree):
-            pts.append(gl.add(pts[-1], step))
-        f = rq._as_slots_t(torch.stack(pts, dim=1))   # (rows, deg+1, 8, half)
-        q = comb.multiset_sum(tuple(c[:t_rows] for c in f), sets.groups)
-        g = fq3.mul(q, tuple(c[t_rows] for c in f))
-        msg = torch.stack([gl.sum_axis(c, -1) for c in g],
-                          dim=-1).reshape(-1, 24)
+    """Unfactored rounds r..nv-1 of a truncated lin stack: mz the Mz rows
+    after the factored rounds (t, 24, 2), folded here at chals[r - 1]
+    into column 0 of a 2^(nv-r) wide table (mz (t, 24, 1) as it is when
+    r is 0), under the eq row: the eq table of the remaining `betas`,
+    whose weight is `scale` = prod eqf(beta_j, r_j) over the rounds
+    before, a (3,) device tensor.  Each round's message is its plain sums
+    at degree+1 points: one comb.lin_recon_round launch (its fold of the
+    previous challenge fused) and one round tail.  Returns the final rows
+    [Mz..., eq], folded and scaled by the same kernel."""
+    t_rows, dev = mz.shape[0], mz.device
+    rows = 1 << (nv - r)
+    shape = (t_rows + 1, 24, rows)
+    if r:
+        cur = torch.empty(shape, dtype=gl.DTYPE, device=dev)
+        comb.lin_recon_fold(mz, chals[r - 1], cur[:t_rows])
+    else:
+        cur = torch.zeros(shape, dtype=gl.DTYPE, device=dev)
+        cur[:t_rows, :, :1] = mz
+    tables.eq_table(betas, rows, dev, t_layout=True, out=cur[t_rows])
+    for k in range(r, nv):
+        if k == r:
+            msg = comb.lin_recon_round(cur, sets, degree + 1, scale)
+        else:
+            msg, cur = comb.lin_recon_round(cur, sets, degree + 1, scale,
+                                            chals[k - 1])
         challenger.round_tail(msg, None, None, None, state,
-                              _pending(pend0, chals, r), msgs, chals, r,
+                              _pending(pend0, chals, k), msgs, chals, k,
                               weighted=False)
-        cur = gl.add(v0, rq.ntt_scalar_mul_t(step, fq3.of(chals[r])))
-        r += 1
-    return cur[..., 0]
+    final = torch.empty((t_rows + 1, 24, 1), dtype=gl.DTYPE, device=dev)
+    comb.lin_recon_fold(cur, chals[nv - 1], final, scale)
+    return final[..., 0]
 
 
 def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
@@ -286,12 +267,11 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
     if n_fact < nv:
         own = recon_betas is None
         recon = beta_s if own else recon_betas
-        tab = gl.upload(gl.from_limbs(build_eq_table_rev(recon[n_fact:])),
-                        dev)
         if not own:
             recon_d = _ints([list(b) for b in recon[:n_fact]], dev)
-    msgs = torch.zeros((nv, n_msg, 24), dtype=gl.DTYPE, device=dev)
-    chals = torch.zeros((nv, 3), dtype=gl.DTYPE, device=dev)
+    # every round writes its row of both
+    msgs = torch.empty((nv, n_msg, 24), dtype=gl.DTYPE, device=dev)
+    chals = torch.empty((nv, 3), dtype=gl.DTYPE, device=dev)
 
     mz, eq = g_t[:t_rows], g_t[t_rows]
     for r in range(n_fact):
@@ -307,15 +287,16 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
         challenger.round_tail(Sq, lag, betas, E, state,
                               _pending(pend0, chals, r), msgs, chals, r)
         eq = Tc
-    if n_fact:
-        mz = comb.fold_t(mz, chals[n_fact - 1])
     if n_fact < nv:
         # E is prod_{j < n_fact} eqf(beta_j, r_j) already
-        scale = (fq3.of(E[0]) if own
-                 else _eqf_product(recon_d, chals[:n_fact]))
-        final = _lin_reconstruct(mz, nv, n_fact, degree, sets, tab, scale,
-                                 state, pend0, msgs, chals)
+        scale = (E[0] if own else
+                 torch.stack(_eqf_product(recon_d, chals[:n_fact])))
+        final = _lin_reconstruct(mz, nv, n_fact, degree, sets,
+                                 recon[n_fact:], scale, state, pend0, msgs,
+                                 chals)
     else:
+        if n_fact:
+            mz = comb.fold_t(mz, chals[n_fact - 1])
         # the unfactored eq row equals E * T (T the carried pair-sum table)
         final = torch.cat([mz, rq.ntt_scalar_mul_t(eq, fq3.of(E[0]))[None]])
         final = final[..., 0]

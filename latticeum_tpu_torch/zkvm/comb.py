@@ -1,8 +1,11 @@
-"""The four sum-check comb kernels: wrappers, plain-torch twins, launch counts.
+"""The four sum-check comb kernels and the lin reconstruction round: wrappers,
+plain-torch twins, launch counts.
 
 Counterparts of the Pallas kernels in ``latticeum_tpu/zkvm/pallas_comb.py``
 (``fold_round0_pallas``, ``fold_roundr_pallas``, ``lin_round0_pallas``,
-``lin_roundr_pallas``); the CUDA bodies are in ``csrc/comb.cu``.
+``lin_roundr_pallas``) and of the reconstruction rounds of the XLA
+``latticeum_tpu/zkvm/accel_dev_fs.py:212`` ``run_fixed_phase_dev``; the CUDA
+bodies are in ``csrc/comb.cu``.
 
 All arrays are t-layout int64 Goldilocks tensors, (rows, 24, width) with
 slot-major ring positions 3*s + c and the (bit-reversed) hypercube on the
@@ -22,6 +25,16 @@ minor axis, so a sum-check round pairs column x with column x + half.
   prod_{j in S_i} f_t[j], t < npts, over X (rows, 24, 2q).
 * ``lin_roundr(X, Tc, r3, sets, npts)``: fold at r as above, then the lin
   sums over F; returns (S, F).
+* ``lin_recon_round(X, sets, npts, scale3, r3=None)``: a round of the
+  truncated lin sum-check's reconstruction tail over X (rows + 1, 24, 2q),
+  whose last row is the eq row: S[t] = sum_x scale * e_t(x) * sum_i c_i
+  prod_{j in S_i} f_t[j], with e_t the eq row extended to point t like
+  the Mz rows; scale3 a (3,) device tensor.  With r3, X (rows + 1, 24, 4q)
+  is folded at r3 first and (S, F) returned.  ``lin_recon_fold(X, r3, out,
+  scale3=None)`` is the same kernel's fold alone: out[..., :w] = X folded
+  at r3 (X width 2w), the last row times scale3 where given, and
+  out[..., w:] = 0.  Both count their launches in
+  ``lin_recon_round.launches``.
 
 The lin constants c_i are +-1 signs (``lin_sets``: the zkVM's own CCS, as
 the Pallas lin kernels take them) or any rings (``lin_sets_general``):
@@ -226,6 +239,35 @@ def lin_roundr_twin(X, Tc, r3, sets, npts):
     return _lin_sums_twin(F, Tc, sets, npts), F
 
 
+def lin_recon_round_twin(X, sets, npts, scale3, r3=None):
+    """A reconstruction round as the port first ran it, plain torch: each
+    point's Mz and eq values, the multiset sum, the weight."""
+    cur = X if r3 is None else fold_t(X, r3)
+    t_rows = cur.shape[0] - 1
+    half = cur.shape[-1] // 2
+    v0, v1 = cur[..., :half], cur[..., half:]
+    step = gl.sub(v1, v0)
+    pts = [v0]
+    for _t in range(npts - 1):
+        pts.append(gl.add(pts[-1], step))
+    f = rq._as_slots_t(torch.stack(pts, dim=1))   # (rows, npts, 8, half)
+    q = multiset_sum(tuple(c[:t_rows] for c in f), sets.groups)
+    e = fq3.mul(tuple(c[t_rows] for c in f), fq3.of(scale3))
+    g = fq3.mul(q, e)
+    msg = torch.stack([gl.sum_axis(c, -1) for c in g],
+                      dim=-1).reshape(-1, 24)
+    return msg if r3 is None else (msg, cur)
+
+
+def lin_recon_fold_twin(X, r3, out, scale3=None):
+    F = fold_t(X, r3)
+    if scale3 is not None:
+        F[-1] = rq.ntt_scalar_mul_t(F[-1], fq3.of(scale3))
+    out[..., :F.shape[-1]] = F
+    out[..., F.shape[-1]:] = 0
+    return out
+
+
 # -- wrappers ------------------------------------------------------------------
 
 def _fold_check(X, Tb, mu, b_small, width_mult):
@@ -274,15 +316,19 @@ def fold_roundr(X, Tb, mu, r3, b_small):
     return out, F
 
 
-def _lin_check(X, Tc, sets, npts, width_mult):
+def _lin_check(X, Tc, sets, npts, width_mult, eq_row=False):
+    """(rows, q); with eq_row, X holds one row past the multisets' rows
+    and there is no Tc."""
     rows, _, width = X.shape
     if width % width_mult or width < width_mult:
         raise ValueError(f"lin width {width} not a multiple of {width_mult}")
     q = width // width_mult
     _check("X", X, (rows, 24, width))
-    _check("Tc", Tc, (24, q))
-    if sets.rows != rows:
-        raise ValueError(f"multisets index {sets.rows} rows, X has {rows}")
+    if not eq_row:
+        _check("Tc", Tc, (24, q))
+    if sets.rows != rows - eq_row:
+        raise ValueError(f"multisets index {sets.rows} rows, X has {rows}"
+                         + (" with the eq row" if eq_row else ""))
     if (sets.sgn is None) == (sets.rings is None):
         raise ValueError("lin sets need either +-1 signs or ring constants")
     if not 1 <= npts <= MAX_LIN_PTS:
@@ -332,13 +378,65 @@ def lin_roundr(X, Tc, r3, sets, npts):
     return out, F
 
 
+def lin_recon_round(X, sets, npts, scale3, r3=None):
+    """A reconstruction round of the truncated lin sum-check (replaces the
+    round body of accel_dev_fs.run_fixed_phase_dev's reconstruction tail),
+    one launch: X is read as it is (r3 None) or folded at r3 first."""
+    rows, q = _lin_check(X, None, sets, npts, 2 if r3 is None else 4,
+                         eq_row=True)
+    _check("scale3", scale3, (3,))
+    if r3 is not None:
+        _check("r3", r3, (3,))
+    args = (X, scale3) + (() if r3 is None else (r3,))
+    if _route(args + _sets_tensors(sets)) == "cpu":
+        return lin_recon_round_twin(X, sets, npts, scale3, r3)
+    nbx = -(-q // BLOCK)
+    out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
+    partial = out if nbx == 1 else torch.empty(
+        (nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
+    F = None if r3 is None else torch.empty(
+        (rows, 24, 2 * q), dtype=gl.DTYPE, device=X.device)
+    _launch("lt_lin_recon_round", _ptr(X), None if F is None else _ptr(F),
+            *_sets_args(sets), _ptr(partial), _ptr(out), q,
+            None if r3 is None else _ptr(r3), _ptr(scale3), rows - 1, npts,
+            _stream())
+    lin_recon_round.launches += 1
+    return out if r3 is None else (out, F)
+
+
+def lin_recon_fold(X, r3, out, scale3=None):
+    """out[..., :w] <- X (rows, 24, 2w) folded at r3, its last row times
+    scale3 where given, and out[..., w:] <- 0; out (rows, 24, >= w)
+    contiguous.  The fold alone
+    of the reconstruction round's kernel (its launches count there)."""
+    rows, _, width = X.shape
+    if width % 2 or width < 2:
+        raise ValueError(f"recon fold width {width} not a multiple of 2")
+    w = width // 2
+    _check("X", X, (rows, 24, width))
+    _check("r3", r3, (3,))
+    if out.dim() != 3 or out.shape[-1] < w:
+        raise ValueError(f"out: shape {tuple(out.shape)}, expected "
+                         f"({rows}, 24, >= {w})")
+    _check("out", out, (rows, 24, out.shape[-1]))
+    if scale3 is not None:
+        _check("scale3", scale3, (3,))
+    args = (X, r3, out) + (() if scale3 is None else (scale3,))
+    if _route(args) == "cpu":
+        return lin_recon_fold_twin(X, r3, out, scale3)
+    _launch("lt_lin_recon_fold", _ptr(X), _ptr(out), rows, w, out.shape[-1],
+            _ptr(r3), None if scale3 is None else _ptr(scale3), _stream())
+    lin_recon_round.launches += 1
+    return out
+
+
 WRAPPERS = (fold_round0, fold_roundr, lin_round0, lin_roundr)
 TWINS = {fold_round0: fold_round0_twin, fold_roundr: fold_roundr_twin,
          lin_round0: lin_round0_twin, lin_roundr: lin_roundr_twin}
 
 
 def reset_launches():
-    for w in WRAPPERS:
+    for w in WRAPPERS + (lin_recon_round,):
         w.launches = 0
 
 

@@ -287,6 +287,242 @@ def test_cpu_tensors_run_the_twin_without_counting_launches():
     assert all(w.launches == 0 for w in comb.WRAPPERS)
 
 
+# -- the lin reconstruction rounds ----------------------------------------------
+
+def recon_oracle(X, S, consts, npts, scale):
+    """Python-int sums of one reconstruction round over X (rows + 1, 24,
+    2q): S[t] = sum_x scale * e_t * sum_i c_i prod_{j in S_i} f_t[j], the
+    eq row (the last) extended to point t like the Mz rows."""
+    rows, _, m2 = X.shape
+    q = m2 // 2
+    out = [[0] * 24 for _ in range(npts)]
+    for x in range(q):
+        for t in range(npts):
+            for s in range(8):
+                f = []
+                for j in range(rows):
+                    v0 = tuple(int(X[j, 3 * s + c, x]) for c in range(3))
+                    v1 = tuple(int(X[j, 3 * s + c, q + x]) for c in range(3))
+                    st = H.fq3_sub(v1, v0)
+                    f.append(H.fq3_add(v0, tuple(t * c % P for c in st)))
+                acc = (0, 0, 0)
+                for S_i, sg in zip(S, consts):
+                    prod = (1, 0, 0)
+                    for j in S_i:
+                        prod = H.fq3_mul(prod, f[j])
+                    if isinstance(sg, int):
+                        acc = (H.fq3_add(acc, prod) if sg > 0
+                               else H.fq3_sub(acc, prod))
+                    else:
+                        acc = H.fq3_add(acc, H.fq3_mul(prod, tuple(
+                            int(sg[3 * s + c]) for c in range(3))))
+                w = H.fq3_mul(H.fq3_mul(acc, f[-1]), scale)
+                for c in range(3):
+                    out[t][3 * s + c] = (out[t][3 * s + c] + w[c]) % P
+    return out
+
+
+def fold_oracle(X, r3):
+    """Python-int fold of X (rows, 24, 2w) at r3 -> (rows, 24, w) ints."""
+    rows, _, w2 = X.shape
+    w = w2 // 2
+    out = np.zeros((rows, 24, w), dtype=object)
+    for j in range(rows):
+        for s in range(8):
+            for x in range(w):
+                a = tuple(int(X[j, 3 * s + c, x]) for c in range(3))
+                b = tuple(int(X[j, 3 * s + c, w + x]) for c in range(3))
+                v = H.fq3_add(a, H.fq3_mul(r3, H.fq3_sub(b, a)))
+                out[j, 3 * s:3 * s + 3, x] = v
+    return out
+
+
+@pytest.mark.parametrize("kind", ["signs", "rings"])
+@pytest.mark.parametrize("fold", [False, True])
+def test_lin_recon_round_twin_matches_python_int_oracle(kind, fold):
+    """One reconstruction round (the first, or a later one with its fold
+    of the previous challenge) against Python ints, with +-1 signs and
+    with ring constants; a row of p - 1 among the inputs."""
+    S, signs = SETS
+    rng = np.random.default_rng(70 + fold + 2 * (kind == "rings"))
+    consts = signs if kind == "signs" else rings(rng, len(S))
+    ls = (comb.lin_sets(S, signs, 6, "cpu") if kind == "signs"
+          else comb.lin_sets_general(S, consts, 6, "cpu"))
+    q, npts = 2, 5
+    X = rnd(rng, 7, 24, (4 if fold else 2) * q)
+    X[2] = P - 1
+    scale = tuple(int(v) for v in rnd(rng, 3))
+    comb.reset_launches()
+    if fold:
+        r3 = tuple(int(v) for v in rnd(rng, 3))
+        S_t, F = comb.lin_recon_round(tt(X), ls, npts, tt(np.array(
+            scale, np.uint64)), tt(np.array(r3, np.uint64)))
+        cur = fold_oracle(X, r3)
+        assert gl.to_int_lists(F) == cur.tolist()
+    else:
+        S_t = comb.lin_recon_round(tt(X), ls, npts,
+                                   tt(np.array(scale, np.uint64)))
+        cur = X
+    assert gl.to_int_lists(S_t) == recon_oracle(cur, S, consts, npts, scale)
+    assert comb.lin_recon_round.launches == 0
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_lin_recon_fold_twin_matches_python_int_oracle(scaled):
+    """The fold alone into the first columns of a wider output (zero past
+    them), the last row times the scale where given."""
+    rng = np.random.default_rng(80 + scaled)
+    X, r3 = rnd(rng, 4, 24, 4), tuple(int(v) for v in rnd(rng, 3))
+    scale = tuple(int(v) for v in rnd(rng, 3)) if scaled else None
+    out = torch.full((4, 24, 5), 7, dtype=torch.int64)
+    comb.lin_recon_fold(tt(X), tt(np.array(r3, np.uint64)), out,
+                        None if scale is None else tt(np.array(scale,
+                                                               np.uint64)))
+    want = fold_oracle(X, r3)
+    if scaled:
+        for s in range(8):
+            for x in range(2):
+                want[-1, 3 * s:3 * s + 3, x] = H.fq3_mul(
+                    tuple(int(v) for v in want[-1, 3 * s:3 * s + 3, x]),
+                    scale)
+    assert gl.to_int_lists(out[..., :2]) == want.tolist()
+    assert not out[..., 2:].any()
+
+
+def test_lin_recon_wrappers_validate_their_arguments():
+    S, signs = SETS
+    ls = comb.lin_sets(S, signs, 6, "cpu")
+    z = lambda *s: torch.zeros(s, dtype=torch.int64)  # noqa: E731
+    with pytest.raises(ValueError):        # no eq row
+        comb.lin_recon_round(z(6, 24, 4), ls, 3, z(3))
+    with pytest.raises(ValueError):        # odd width
+        comb.lin_recon_round(z(7, 24, 3), ls, 3, z(3))
+    with pytest.raises(ValueError):        # a fold needs 4q columns
+        comb.lin_recon_round(z(7, 24, 6), ls, 3, z(3), z(3))
+    with pytest.raises(ValueError):        # more points than instantiated
+        comb.lin_recon_round(z(7, 24, 4), ls, comb.MAX_LIN_PTS + 1, z(3))
+    with pytest.raises(ValueError):
+        comb.lin_recon_round(z(7, 24, 4), ls, 3, z(2))
+    with pytest.raises(ValueError):        # out narrower than the fold
+        comb.lin_recon_fold(z(7, 24, 4), z(3), z(7, 24, 1))
+    with pytest.raises(ValueError):
+        comb.lin_recon_fold(z(7, 24, 3), z(3), z(7, 24, 2))
+
+
+def test_recon_eq_table_is_the_host_doubling():
+    """The reconstruction's eq row as tables.eq_table builds it (t-layout,
+    2^k rows of the last k betas) is the JAX package's bit-reversed host
+    doubling accel_t.build_eq_table_rev, transposed, bit for bit: for two
+    proofs' betas (a call's own and a replayed earlier call's) and for
+    betas of p - 1."""
+    from latticeum_tpu.zkvm.accel_t import build_eq_table_rev
+    from latticeum_tpu_torch.zkvm import tables
+    rng = np.random.default_rng(90)
+    own, replayed = ([tuple(int(v) for v in rnd(rng, 3)) for _ in range(17)]
+                     for _ in range(2))
+    for betas in (own, replayed, [(P - 1,) * 3] * 17):
+        for k in (1, 3, 5):
+            got = tables.eq_table(betas[17 - k:], 1 << k, "cpu",
+                                  t_layout=True)
+            with B.numpy_mode():
+                want = ints(build_eq_table_rev(betas[17 - k:])).T
+            assert np.array_equal(gl.to_u64(got), want)
+
+
+def _lin_sumcheck_case(seed, nv, n0, kind):
+    """A truncated lin sum-check (its reconstruction rounds included) on
+    the host (sumcheck.prove with the eq factored) and through the port's
+    chained runner, with +-1 signs or ring constants."""
+    from latticeum_tpu.crypto.transcript import Transcript
+    from latticeum_tpu.field import goldilocks as gl_ref
+    from latticeum_tpu.nifs import linearization as lin
+    from latticeum_tpu.poly import mle, sumcheck
+    from latticeum_tpu.zkvm.accel_t import bitrev_indices
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    S, signs = [(0, 1, 2), (1,), (2, 2)], (1, -1, 1)
+    rng = np.random.default_rng(seed)
+    consts = ([H.ntt_from_u64(1 if x > 0 else P - 1) for x in signs]
+              if kind == "signs" else rings(rng, len(S)))
+    beta = [tuple(int(v) for v in rnd(rng, 3)) for _ in range(nv)]
+    mz = rnd(rng, 3, n0, 24)
+    with B.numpy_mode():
+        eq = mle.build_eq_table(beta, max_rows=n0)
+        g = (np.concatenate([limbs(mz)[0], np.asarray(eq[0])[None]]),
+             np.concatenate([limbs(mz)[1], np.asarray(eq[1])[None]]))
+        c = gl_ref.from_int(np.array(consts, dtype=object))
+        two = lin.make_comb_fn2(S)
+        th = Transcript(record_samples=True)
+        host = sumcheck.prove(th, g, nv, 4, lambda v: two(v, c),
+                              eq_info=(beta, 3))
+    brev = torch.from_numpy(bitrev_indices((n0 - 1).bit_length()))
+    g_t = gl.from_limbs(g).transpose(1, 2)[..., brev].contiguous()
+    sets = (comb.lin_sets(S, signs, 3, "cpu") if kind == "signs"
+            else comb.lin_sets_general(S, consts, 3, "cpu"))
+    td = Transcript(record_samples=True)
+    port = accel_rounds.run_lin_rounds_factored(td, g_t, nv, 4, sets, beta)
+    final = ints(host[2])[:, 0]
+    return ((host[0], host[1], final.tolist(), th.export_for_device(),
+             th.samples),
+            (port[0], port[1], gl.to_int_lists(port[2]),
+             td.export_for_device(), td.samples))
+
+
+@pytest.mark.parametrize("nv,n0,kind", [(6, 8, "signs"), (6, 8, "rings"),
+                                        (4, 1, "signs"), (5, 4, "rings")])
+def test_lin_reconstruct_matches_host_sumcheck(nv, n0, kind):
+    """The whole reconstruction tail (3, 4 or 3 rounds after 3, 0 or 2
+    factored ones) inside the chained runner: its messages, challenges,
+    finals and transcript equal the host sum-check's."""
+    host, port = _lin_sumcheck_case(nv + n0, nv, n0, kind)
+    assert port == host
+
+
+@pytest.mark.cuda
+def test_cuda_lin_recon_round_matches_twin():
+    """The reconstruction kernel against its twin on the card at every
+    point count 1 ... 12, first round and folded, signs and rings, at 1,
+    2, 4 columns (the zkVM's widths), 3 (lanes left idle) and 200 (several
+    blocks), with rows of p - 1; the fold alone, scaled and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(95)
+    dev = "cuda"
+
+    def d(u):
+        return tt(u).to(dev)
+    S, signs = SETS7
+    comb.reset_launches()
+    calls = 0
+    for ls in (comb.lin_sets(S, signs, 9, dev),
+               comb.lin_sets_general(S, rings(rng, len(S)), 9, dev)):
+        for npts in range(1, comb.MAX_LIN_PTS + 1):
+            for q in (1, 2, 3, 4, 200):
+                for fold in (False, True):
+                    X = rnd(rng, 10, 24, (4 if fold else 2) * q)
+                    X[0] = P - 1
+                    X[-1, :, :q] = P - 1
+                    args = (d(X), ls, npts, d(rnd(rng, 3)))
+                    if fold:
+                        args += (d(rnd(rng, 3)),)
+                    got = comb.lin_recon_round(*args)
+                    want = comb.lin_recon_round_twin(*args)
+                    calls += 1
+                    for a, b in zip(got if fold else (got,),
+                                    want if fold else (want,)):
+                        assert torch.equal(a, b), (npts, q, fold)
+    for scale in (None, d(rnd(rng, 3))):
+        X, r3 = rnd(rng, 10, 24, 2), d(rnd(rng, 3))
+        X[3] = P - 1
+        X = d(X)
+        got = torch.zeros((10, 24, 8), dtype=torch.int64, device=dev)
+        want = got.clone()
+        comb.lin_recon_fold(X, r3, got, scale)
+        comb.lin_recon_fold_twin(X, r3, want, scale)
+        calls += 1
+        assert torch.equal(got, want)
+    assert comb.lin_recon_round.launches == calls
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_twins():
     if not torch.cuda.is_available():

@@ -128,3 +128,71 @@ def test_poly_mul_and_rot_match_reference(name):
         oracle = [R.rot([int(v) for v in x]) for x in a[0]]
     assert same(got, want)
     assert gl.to_int_lists(got[0]) == oracle
+
+
+def _rows_with_edges(shape, seed):
+    """(shape..., 24) random canonical values; where there are rows, the
+    first is all p - 1 and the second holds 0, 1 and p - 1."""
+    u = rand_rings(1, seed, shape)[..., 0, :] if shape else \
+        rand_rings(1, seed)[0]
+    flat = u.reshape(-1, 24)
+    if flat.shape[0] >= 1:
+        flat[0] = P - 1
+    if flat.shape[0] >= 2:
+        flat[1, :3] = (0, 1, P - 1)
+    return flat.reshape(u.shape)
+
+
+@pytest.mark.parametrize("name", ["crt", "icrt"])
+@pytest.mark.parametrize("shape", [(), (15,), (2, 3), (0,), (1,)])
+def test_routed_maps_match_jax_and_reference(name, shape):
+    """rq.crt/icrt on CPU tensors (the twin) on batch shapes (), (15,),
+    (2, 3), on 0 and 1 rows, with rows of p - 1: against the JAX package's
+    butterfly network under numpy and the Python-int oracle, row by row;
+    no launch counted."""
+    u = _rows_with_edges(shape, seed=len(shape) + 10)
+    rq.reset_launches()
+    got = getattr(rq, name)(t(u))
+    assert got.shape == u.shape and got.dtype == torch.int64
+    assert rq.crt.launches == rq.icrt.launches == 0
+    with B.numpy_mode():
+        assert same(got, getattr(rq_ref, name)(ref(u)))
+    oracle = getattr(R, name)
+    assert gl.to_int_lists(got.reshape(-1, 24)) == [
+        oracle([int(v) for v in row]) for row in u.reshape(-1, 24)]
+
+
+def test_crt_wrappers_check_their_arguments():
+    x = torch.zeros((3, 24), dtype=torch.int64)
+    for fn in (rq.crt, rq.icrt):
+        with pytest.raises(TypeError):
+            fn(x.to(torch.int32))
+        with pytest.raises(ValueError):
+            fn(torch.zeros((3, 23), dtype=torch.int64))
+        with pytest.raises(ValueError):
+            fn(torch.zeros((), dtype=torch.int64))
+        with pytest.raises(ValueError):
+            fn(torch.zeros((3, 24), dtype=torch.int64, device="meta"))
+
+
+@pytest.mark.cuda
+def test_cuda_crt_icrt_match_twins():
+    """The butterfly kernel against the dense twin (plain torch on the
+    same card tensors), bit for bit: 0 to 1,500 rows (around the 128-row
+    block), a (15, 98815) batch as dec's crt(ks) gives it, and a
+    non-contiguous input; rows of p - 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rq.reset_launches()
+    for shape in [(), (0,), (1,), (127,), (128,), (129,), (1500,),
+                  (15, 98815)]:
+        u = _rows_with_edges(shape, seed=sum(shape) + 1)
+        for fn, twin in ((rq.crt, rq.crt_twin), (rq.icrt, rq.icrt_twin)):
+            x = t(u).cuda()
+            got = fn(x)
+            assert got.device.type == "cuda"
+            assert torch.equal(got, twin(x)), (fn.__name__, shape)
+    u = _rows_with_edges((40,), seed=3)
+    x = t(u).cuda()[::2]
+    assert torch.equal(rq.crt(x), rq.crt_twin(x))
+    assert rq.crt.launches == 8 and rq.icrt.launches == 7   # no launch at 0
