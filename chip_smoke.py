@@ -37,7 +37,20 @@ Phases (each prints its own lines; any failure exits non-zero):
               against its twin at the main path's reconstruction rounds
               (126 rows at 8 columns, then folded to 4 and 2; signs and
               ring constants) and its fold alone, each timed by a CUDA
-              graph beside its bound and the launch floor;
+              graph beside its bound and the launch floor; fold_c_round
+              (csrc/comb.cu) against its twin at every fold round width
+              2^17 ... 2 (round 0 on the head's row-strided rows), its
+              pair sums alone at the lin widths and its end mode, timed by
+              CUDA graphs beside their bounds; then (phase coo)
+              coo_matvec (csrc/coo.cu) against its twin in the prover's
+              three segment maps (M z, M^T eq with its 704-entry
+              segments, the head's challenged z over K witnesses added in
+              place) with the CCS's scalar values and with ring values,
+              each timed by a CUDA graph beside its bound; then (phase
+              sum-check launches) one fold and one lin sum-check at the
+              main path's shapes traced by torch.profiler in a fresh
+              process: the fold's device launches fewer than
+              FOLD_SUMCHECK_LAUNCHES;
   5. ring     crt and icrt (ring/rq.py, csrc/ring.cu) against their dense
               twins at 15 x 98815 rings (dec's crt(ks)), 19,763 and
               98,815, with rows of p - 1 and edge values, each timed by a
@@ -93,7 +106,11 @@ Phases (each prints its own lines; any failure exits non-zero):
               trees of each prove_vm) > 0, eq_table at least 10 a fold and
               head_alpha one a fold, crt and icrt at least 5 a step,
               lin_recon_round once a reconstruction round and twice more
-              (its folds) a lin sum-check, and ring_contract called; each
+              (its folds) a lin sum-check, coo_matvec once a lin and five
+              times a fold step (mz_stack; mt_eq_stack twice in dec and
+              once in the fold; twice in the head), fold_c_round once a
+              fold round, once a fold sum-check's end and once a factored
+              lin round, and ring_contract called; each
               prove_vm's tree time and its parts; every lin and fold
               sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
@@ -146,7 +163,12 @@ bound both.  crt and icrt are counted from the butterfly networks
 (CRT_OPS: 48 and 72 multiplies, 85 adds or subtracts a ring, never the
 dense twin's 576 products) at the probes' SASS, beside their 384 bytes a
 ring; lin_recon_round from lin_body's field operations with the eq row
-as its weight (recon_ops), beside its launch floor.
+as its weight (recon_ops), beside its launch floor; coo_matvec from the
+multiply-adds that its unreduced sums need (9 an Fq3 product, 3 a scalar
+one, a reduction an output or a head entry) and its bytes, the rows
+gathered counted once and only the head's non-empty rows read back;
+fold_c_round from its pair sums, its four unreduced Fq3 products a column
+and its folds, beside its bytes.
 """
 
 import contextlib
@@ -285,13 +307,20 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "eq_table": "latticeum_tpu/zkvm/accel.py:141",
                "head_alpha": "latticeum_tpu/zkvm/accel_nifs.py:997",
                "crt": "latticeum_tpu/ring/rq.py:61",
-               "lin_recon_round": "latticeum_tpu/zkvm/accel_dev_fs.py:212"}
+               "lin_recon_round": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
+               "coo_matvec": "latticeum_tpu/zkvm/accel.py:117",
+               "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
 CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
 TABLES_SOURCE = "latticeum_tpu_torch/csrc/tables.cu"
 RING_SOURCE = "latticeum_tpu_torch/csrc/ring.cu"
 COMB_SOURCE = "latticeum_tpu_torch/csrc/comb.cu"
+COO_SOURCE = "latticeum_tpu_torch/csrc/coo.cu"
+# A fold sum-check on the main path makes fewer device launches than this
+# (kernels and copies, counted by torch.profiler): a round's fold_c_round,
+# tail comb (two launches) and round_tail, the end, the uploads and fetch.
+FOLD_SUMCHECK_LAUNCHES = 120
 MXU_KERNELS = ("digit_split", "plane_recombine")
 # The instantiation whose SASS sets the per-permutation work of the bounds.
 PERM8_ONE_LANE = "perm8_kernelILi1EE"
@@ -348,7 +377,7 @@ def main():
     from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
     from latticeum_tpu_torch.ring import rq
-    from latticeum_tpu_torch.zkvm import accel_rounds, comb, tables
+    from latticeum_tpu_torch.zkvm import accel, accel_rounds, comb, tables
 
     dev = torch.device("cuda")
     card, rate, mix, perm8_sass, perm16_sass, lat = device_and_build(
@@ -376,6 +405,10 @@ def main():
                             dev, rate, mix) + records
     records += recon_checks(torch, np, gl, comb, accel_rounds, prover, dev,
                             rate, mix)
+    records += fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix)
+
+    phase("coo")
+    records += coo_checks(torch, np, gl, prover, dev, rate, mix)
 
     phase("ring")
     records += ring_checks(torch, np, gl, rq, dev, rate, mix)
@@ -399,6 +432,9 @@ def main():
     phase("mesh")
     mesh_checks(card)
 
+    phase("sum-check launches")
+    sumcheck_launches(prover)
+
     phase("main path")
     folds = record_folds(prover)
     comb.reset_launches()
@@ -408,6 +444,7 @@ def main():
     challenger.round_tail.launches = 0
     tables.reset_launches()
     rq.reset_launches()
+    accel.coo_matvec.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     with one_fetch_per_sumcheck(torch) as sumchecks:
@@ -424,6 +461,8 @@ def main():
     launches.update({k.__name__: k.launches for k in tables.KERNELS})
     launches["crt"] = rq.crt.launches + rq.icrt.launches
     launches["lin_recon_round"] = comb.lin_recon_round.launches
+    launches["coo_matvec"] = accel.coo_matvec.launches
+    launches["fold_c_round"] = comb.fold_c_round.launches
     contractions = mxu.ring_contract.calls
     log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
         f"{sumchecks['fold']} fold, each with exactly one device -> host "
@@ -446,12 +485,23 @@ def main():
             launches["crt"] < 5 * len(folds):
         fail(f"{len(folds)} steps launched crt {rq.crt.launches} and icrt "
              f"{rq.icrt.launches} times (at least 5 a step in all)")
-    recon_rounds = ccs.s - accel_rounds._factored_rounds(
-        prover.dn._cap_pow2, ccs.s)
+    n_fact = accel_rounds._factored_rounds(prover.dn._cap_pow2, ccs.s)
+    recon_rounds = ccs.s - n_fact
     if launches["lin_recon_round"] != sumchecks["lin"] * (recon_rounds + 2):
         fail(f"{sumchecks['lin']} lin sum-checks launched lin_recon_round "
              f"{launches['lin_recon_round']} times, not {recon_rounds} "
              "rounds and 2 folds each")
+    # one mz_stack a lin; three mt_eq_stack (dec twice, fold once) and two
+    # for the head a fold
+    want_coo = sumchecks["lin"] + 5 * sumchecks["fold"]
+    if launches["coo_matvec"] != want_coo:
+        fail(f"coo_matvec launched {launches['coo_matvec']} times, not "
+             f"{want_coo} (one a lin, five a fold step)")
+    want_fc = sumchecks["fold"] * (ccs.s + 1) + sumchecks["lin"] * n_fact
+    if launches["fold_c_round"] != want_fc:
+        fail(f"fold_c_round launched {launches['fold_c_round']} times, not "
+             f"{want_fc} (a round and the end a fold sum-check, a pair sum "
+             "a factored lin round)")
     t0 = time.time()
     for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
         if prover.verify_fold(acc, cm_i, proof) != folded:
@@ -1570,6 +1620,272 @@ def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix):
     return [rec]
 
 
+def coo_checks(torch, np, gl, prover, dev, rate, mix):
+    """coo_matvec (zkvm/accel.py, csrc/coo.cu) against its twin on the
+    card, bit for bit, in the prover's three segment maps at production
+    size: M z into the lin stack's t-layout rows (36,536 non-empty of t x
+    2^14 segments), M^T eq by column (t x n segments, up to 704 entries
+    each), the fold head's challenged z over K witnesses added into one c
+    row (2^17 segments); with the CCS's scalar values and with random ring
+    values on the same entries; values p - 1 among the entries and rows of
+    p - 1 among the inputs.  Each timed by a CUDA graph of 20 beside its
+    bound (bytes: the output written, the rows and CSR arrays read once;
+    operations: the multiply-adds an unreduced sum needs), the twin by
+    CUDA events over one call.  Returns the record of M^T eq (scalar), the
+    map whose output is largest."""
+    from latticeum_tpu_torch.zkvm import accel, tables
+    e, ccs, K = prover.dn.e, prover.ccs, prover.params.K
+    rng = np.random.default_rng(29)
+
+    def rnd(*shape):
+        u = rng.integers(0, gl.P, shape, dtype=np.uint64)
+        flat = u.reshape(-1)
+        flat[:min(flat.size, 48)] = gl.P - 1
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    rows, cols, mats, vals, _ = accel._coo_host(ccs)
+    ring_vals = rng.integers(0, gl.P, (vals.shape[0], 24), dtype=np.uint64)
+    ring_vals[:24] = gl.P - 1
+    vals = vals.copy()
+    vals[:24] = gl.P - 1
+    cap, n, m, t = e.cap_pow2, ccs.n, ccs.m, ccs.t
+    brev_cap = tables.brev_host(cap).numpy()
+    brev_m = tables.brev_host(m).numpy()
+    maps = {"mz_stack": (mats * cap + brev_cap[rows], cols, t * cap, cap,
+                         True),
+            "mt_eq_stack": (mats * n + cols, rows, t * n, n, False),
+            "head": (brev_m[rows], cols, m, m, True)}
+    zeta = rnd(K, t, 3)
+    worst, rec = 0, None
+    for name, (seg, gather, nseg, per, t_layout) in maps.items():
+        head = name == "head"
+        x = rnd(K, n, 24) if head else rnd(cap if name == "mt_eq_stack"
+                                           else n, 24)
+        for kind, v in (("scalar", vals), ("ring", ring_vals)):
+            csr = accel.build_csr(seg, gather, mats, v, nseg, per, dev)
+            shape = accel.coo_out_shape(csr, t_layout)
+            base = rnd(*shape[1:]) if head else None
+
+            def fresh():
+                return (base.clone() if head else
+                        torch.empty(shape, dtype=gl.DTYPE, device=dev))
+            mode = (t_layout, zeta if head else None)
+            got, want = fresh(), fresh()
+            accel.coo_matvec(csr, x, got, *mode)
+            accel.coo_matvec_twin(csr, x, want, *mode)
+            err = u64_err(gl, np, got, want)
+            worst = max(worst, err)
+            sizes = csr.sizes
+            log(f"coo_matvec {name} {kind}: {sizes.size} non-empty of "
+                f"{nseg} segments, at most {int(sizes.max())} entries, "
+                f"{csr.n_heavy(K if head else 1)} heavy; "
+                + ("bit-exact with the twin" if err == 0 else
+                   f"max_abs_err={err}"))
+            if err:
+                fail(f"coo_matvec {name} {kind} disagrees with its twin")
+            out = fresh()
+            ms = graph_ms(torch, lambda: accel.coo_matvec(
+                csr, x, out, *mode), 20)
+            plain = cuda_ms(torch, lambda: accel.coo_matvec_twin(
+                csr, x, fresh(), *mode), 1)
+            nnz, nwit = gather.shape[0], K if head else 1
+            in_rows = np.unique(gather).size * nwit
+            ring = kind == "ring"
+            nbytes = (8 * (out.numel() * (2 if head else 1) + 24 * in_rows
+                           + v.size + (nwit * t * 3 if head else 0))
+                      + 4 * (nseg + 1 + nnz * (2 if head else 1)))
+            if head:        # only the non-empty rows are read and written
+                nbytes -= 8 * 2 * 24 * (nseg - sizes.size)
+            per_entry = ({"mac192": 9 * nwit, "mul_w": 2 * nwit,
+                          "reduce192": 3} if head else {})
+            per_entry = tally((1, per_entry),
+                              (1, {"mac192": 9, "mul_w": 2} if ring
+                               else {"mac192": 3}))
+            outs = 8 * sizes.size
+            ops = tally((8 * nnz, per_entry),
+                        (outs, {"reduce192": 3, "add": 3 if head else 0}))
+            b_ms, by, limit = bound(rate, nbytes, pipes(ops, mix))
+            log(f"coo_matvec {name} {kind} {tuple(shape)}: {ms:.4f} ms "
+                f"(CUDA graph of 20), bound {b_ms:.4f} ms by {limit}, "
+                f"{100 * b_ms / ms:.1f} % of it; twin {plain:.3f} ms")
+            if name == "mt_eq_stack" and kind == "scalar":
+                rec = record("coo_matvec", COO_SOURCE, 0, ms, plain, rate,
+                             nbytes, pipes(ops, mix))
+            del csr, got, want, out
+            torch.cuda.empty_cache()
+    rec["max_abs_err"] = worst
+    return [rec]
+
+
+def fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix):
+    """fold_c_round (zkvm/comb.py, csrc/comb.cu) against its twin on the
+    card, bit for bit: round 0 at m = 2^s on a fold head's interleaved,
+    row-strided rows; a folded round at each width down to 2; the pair
+    sums alone at the lin stack's widths (2^14 down to 2) and over the
+    three eq rows; the end (the c and 2 K TAU tail rows folded, the eq
+    rows weighted).  Rows of p - 1.  Each timed by a CUDA graph of 20
+    beside its bound.  Returns round 0's record."""
+    from latticeum_tpu_torch.host.nifs.structs import TAU
+    ccs, K = prover.ccs, prover.params.K
+    m = ccs.m
+    rng = np.random.default_rng(31)
+
+    def rnd(*shape):
+        u = rng.integers(0, gl.P, shape, dtype=np.uint64)
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    worst, rec = 0, None
+    sums = torch.empty((4, 24), dtype=gl.DTYPE, device=dev)
+    w = m
+    while w >= 2:
+        fold = w < m
+        head = rnd(5, 24, w)
+        head[1] = gl.P_I64 - 1
+        head[0, :, :w // 2] = gl.P_I64 - 1
+        c2r = rnd(2, 24, 2 * w) if fold else head[1:4:2]
+        r3 = rnd(3) if fold else None
+        eqs = head[0::2]
+        got = comb.fold_c_round(c2r, eqs, r3, sums) + (sums.clone(),)
+        want = comb.fold_c_round_twin(c2r, eqs, r3)
+        err = u64_err(gl, np, got, want)
+        worst = max(worst, err)
+        if err:
+            fail(f"fold_c_round width {w} fold={fold}: max_abs_err={err}")
+        if w in (m, m // 2, 1 << 10, 2):
+            ms = graph_ms(torch, lambda: comb.fold_c_round(c2r, eqs, r3,
+                                                           sums), 20)
+            plain = cuda_ms(torch, lambda: comb.fold_c_round_twin(
+                c2r, eqs, r3), 1)
+            h = w // 2
+            nbytes = 8 * (3 * 24 * w + 2 * 24 * (2 * w if fold else w)
+                          + 3 * 24 * h + 4 * 24 + (2 * 24 * w + 3
+                                                   if fold else 0))
+            per_col = tally((3, ADD3), (4, {"mac192": 9, "mul_w": 2}))
+            if fold:
+                per_col = tally((1, per_col), (4, SUB3), (4, MUL3),
+                                (4, ADD3))
+            ops = tally((8 * h, per_col), (96, {"reduce192": 1}))
+            b_ms, by, limit = bound(rate, nbytes, pipes(ops, mix))
+            log(f"fold_c_round width {w}{' folded' if fold else ''}: "
+                f"bit-exact; {ms:.4f} ms (CUDA graph of 20), bound "
+                f"{b_ms:.4f} ms by {limit}, {100 * b_ms / ms:.1f} % of it; "
+                f"twin {plain:.3f} ms")
+            if w == m:
+                rec = record("fold_c_round", COMB_SOURCE, 0, ms, plain, rate,
+                             nbytes, pipes(ops, mix))
+        w //= 2
+    log(f"fold_c_round: every round width {m} ... 2 bit-exact with the twin")
+    for shape in ((24, 1 << 14), (24, 2), (3, 24, 1 << 17)):
+        x = rnd(*shape)
+        x[..., 0] = gl.P_I64 - 1
+        err = u64_err(gl, np, comb.pair_sum(x), comb.pair_sum_twin(x))
+        worst = max(worst, err)
+        if err:
+            fail(f"pair_sum {shape}: max_abs_err={err}")
+        ms = graph_ms(torch, lambda: comb.pair_sum(x), 20)
+        b_ms = bound(rate, 8 * x.numel() * 3 // 2, pipes(
+            {"add": x.numel() // 2}, mix))[0]
+        log(f"pair_sum {shape}: bit-exact; {ms:.4f} ms (CUDA graph of 20), "
+            f"bound {b_ms:.5f} ms")
+    n_t = 2 * K * TAU
+    c2r, eqs = rnd(2, 24, 2), rnd(5, 24, 1)[0::2]
+    t_s, r3, E = rnd(n_t, 24, 2), rnd(3), rnd(3, 3)
+    t_s[0] = gl.P_I64 - 1
+    err = u64_err(gl, np, comb.fold_c_end(c2r, eqs, t_s, r3, E),
+                  comb.fold_c_end_twin(c2r, eqs, t_s, r3, E))
+    worst = max(worst, err)
+    if err:
+        fail(f"fold_c_end: max_abs_err={err}")
+    ms = graph_ms(torch, lambda: comb.fold_c_end(c2r, eqs, t_s, r3, E), 20)
+    log(f"fold_c_end ({5 + n_t}, 24, 1): bit-exact; {ms:.4f} ms (CUDA "
+        "graph of 20)")
+    rec["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return [rec]
+
+
+def sumcheck_launches(prover):
+    """The device launches (kernels and copies, as torch.profiler traces
+    them) of one fold sum-check at the main path's shape (m = 2^s, 2 K TAU
+    tail rows) and one lin sum-check (the zkVM's multisets at the lin
+    stack's truncated width), traced in a fresh process (``python3
+    chip_smoke.py --trace-sumchecks s K width``, ``trace_sumchecks``): in
+    this one, after the earlier phases, the traces held 11 to 23 fewer
+    device events than the kernel wrappers counted launches, every time.
+    Fails unless the trace holds at least those kernels and the fold
+    sum-check makes fewer than FOLD_SUMCHECK_LAUNCHES.  Returns {"fold":
+    n, "lin": n}."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--trace-sumchecks",
+           str(prover.ccs.s), str(prover.params.K), str(prover.dn._cap_pow2)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT)
+    if res.returncode != 0:
+        fail(f"the sum-check trace failed ({res.returncode}): "
+             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    traced = json.loads(res.stdout.strip().splitlines()[-1])
+    out = {}
+    for kind, t in traced.items():
+        out[kind] = sum(t["names"].values())
+        log(f"a {kind} sum-check: {out[kind]} device launches (kernels and "
+            f"copies; {t['kernels']} kernels by the wrappers' counts): "
+            f"{t['names']}")
+        if out[kind] < t["kernels"]:
+            fail(f"the {kind} sum-check's trace holds {out[kind]} device "
+                 f"events for {t['kernels']} kernel launches")
+    if not out["fold"] < FOLD_SUMCHECK_LAUNCHES:
+        fail(f"a fold sum-check made {out['fold']} launches, not fewer than "
+             f"{FOLD_SUMCHECK_LAUNCHES}")
+    return out
+
+
+def trace_sumchecks(nv, K, width):
+    """One fold sum-check (m = 2^nv, K) and one lin sum-check (the zkVM's
+    multisets, `width` columns) on the card under torch.profiler, each
+    run by the main path's runner on inputs made from seeds after a
+    warm-up run.  Prints {kind: {"names": device events by name,
+    "kernels": the kernel launches the wrappers counted}}."""
+    import torch
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from latticeum_tpu_torch.crypto import challenger
+    from latticeum_tpu_torch.parallel import fold_mesh, lin_mesh
+    from latticeum_tpu_torch.zkvm import comb, tables
+    dev = torch.device("cuda")
+    fold_in = fold_mesh.fold_inputs(nv, K, device=dev)
+    lin_in = lin_mesh.lin_inputs(nv, width, device=dev)
+    runs = {"fold": lambda: fold_mesh.run_fold_sumcheck(fold_in),
+            "lin": lambda: lin_mesh.run_lin_sumcheck(lin_in)}
+
+    def kernels():          # device kernels the wrappers launched so far
+        return (2 * sum(w.launches for w in comb.WRAPPERS)
+                + comb.lin_recon_round.launches + comb.fold_c_round.launches
+                + challenger.round_tail.launches + tables.eq_table.launches)
+    out = {}
+    for kind, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        for _attempt in range(3):     # a trace short of events is retaken
+            before = kernels()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            names = Counter(e.name.split("(")[0] for e in prof.events()
+                            if e.device_type == DeviceType.CUDA)
+            out[kind] = {"names": dict(names.most_common()),
+                         "kernels": kernels() - before}
+            if sum(names.values()) >= out[kind]["kernels"]:
+                break
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 MESH_FOLD = (1 << 17, 15)          # m, K: the production fold sum-check
 MESH_LIN = (17, 1 << 14)           # nv, n0: the zkVM's truncated lin stack
@@ -2159,4 +2475,6 @@ def prove(prover, vm, steps, name, torch, **options):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-sumchecks"]:
+        sys.exit(trace_sumchecks(*map(int, sys.argv[2:5])))
     sys.exit(main())

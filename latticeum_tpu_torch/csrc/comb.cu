@@ -9,6 +9,10 @@
 // XLA function of the JAX package (accel_dev_fs.py:212
 // run_fixed_phase_dev):
 //   lin_recon_kernel, lin_recon_fold_kernel
+// and the XLA half of the fold round, the c terms and the eq pair sums
+// around the Pallas tail comb (accel_rounds.py:403 _make_round_pallas),
+// with the lin rounds' eq pair sums and the fold sum-check's end:
+//   fold_c_kernel, fold_c_end_kernel
 // The wrappers and the plain-torch twins are in zkvm/comb.py, which states
 // what each kernel computes.
 //
@@ -362,6 +366,159 @@ __global__ void __launch_bounds__(BLOCK)
   store3(o, out_w, x, v);
 }
 
+// One fold round's c terms and eq pair sums (SUMS), or the pair sums
+// alone.  The eq rows eq (n_eq, 24, w), each row contiguous at row stride
+// eq_rs, are pair-summed into Tn (n_eq, 24, h), h = w / 2:
+//     Tn[i][x] = eq[i][x] + eq[i][h + x].
+// With SUMS (n_eq = 3) the two c rows are read as they are (c_in (2, 24,
+// w), row stride c_rs) or, with FOLD, folded at r first (c_in (2, 24, 2w)
+// -> c_out (2, 24, w), c[x] = c_in[x] + r (c_in[w + x] - c_in[x])), and
+//     sums[j]     = sum_{x < h} Tn[j][x] * c[j][x]        (j = 0, 1)
+//     sums[2 + j] = sum_{x < h} Tn[j][x] * c[j][h + x]
+// slot-wise, (4, 24): the rows [c1 at 0, c2 at 0, c1 at 1, c2 at 1] of the
+// round's sums, where round_tail reads them.  The strided rows let the
+// first round read the fold head's interleaved rows [eq, c, eq, c, eq]
+// where they lie.
+// What bounds it: the bytes (round 0 at m = 2^17 reads 125 MB and writes
+// 38 MB).  Thread (x, slot) keeps its four Fq3 sums unreduced (U192,
+// fq3_mac) over the columns it strides through; each block adds its
+// threads' reduced sums (shuffles, then shared memory) into its partial,
+// and the last block to finish (an integer ticket, not a field value,
+// taken with atomicAdd after a fence) adds the partials of every block
+// into sums and resets the ticket: one launch a round, no atomics on
+// field values.  The grid stops at FC_MAX_BX blocks a slot, so that last
+// block adds at most that many partials a value.  The thread's 12
+// unreduced sums (60 registers) and its loads in flight take 185
+// registers, so two blocks of 128 fit an SM; in a trial on the H100,
+// registers capped for 3 or 4 blocks an SM (which spills), or 128 or 256
+// blocks a slot, each ran round 0 slower.
+#define FC_MAX_BX 64
+#define FC_VALS 12  // four Fq3 sums a thread
+
+template <bool SUMS, bool FOLD>
+__global__ void __launch_bounds__(BLOCK)
+    fold_c_kernel(const u64 *__restrict__ c_in, long long c_rs,
+                  const u64 *__restrict__ eq, long long eq_rs, int n_eq,
+                  const u64 *__restrict__ r3, u64 *__restrict__ c_out,
+                  u64 *__restrict__ tn, u64 *__restrict__ partial,
+                  unsigned *__restrict__ ticket, u64 *__restrict__ sums,
+                  long long w) {
+  const long long h = w >> 1;
+  const int slot = blockIdx.y;
+  U192 acc[4][3];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) zero192(acc[q]);
+  const Fq3 r = FOLD ? Fq3{r3[0], r3[1], r3[2]} : fq3_zero();
+  for (long long x = (long long)blockIdx.x * BLOCK + threadIdx.x; x < h;
+       x += (long long)gridDim.x * BLOCK) {
+    Fq3 T[3];
+#pragma unroll 3
+    for (int i = 0; i < (SUMS ? 3 : n_eq); ++i) {
+      const u64 *e = eq + i * eq_rs + 3LL * slot * w;
+      T[SUMS ? i : 0] = fq3_add(load3(e, w, x), load3(e, w, h + x));
+      store3(tn + (i * 24LL + 3 * slot) * h, h, x, T[SUMS ? i : 0]);
+    }
+    if (SUMS) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        Fq3 v0, v1;
+        if (FOLD) {
+          const long long W = 2 * w;
+          const u64 *c = c_in + j * c_rs + 3LL * slot * W;
+          const Fq3 a = load3(c, W, x), b = load3(c, W, w + x);
+          const Fq3 a1 = load3(c, W, h + x), b1 = load3(c, W, w + h + x);
+          v0 = fq3_add(a, fq3_mul(r, fq3_sub(b, a)));
+          v1 = fq3_add(a1, fq3_mul(r, fq3_sub(b1, a1)));
+          u64 *co = c_out + (j * 24LL + 3 * slot) * w;
+          store3(co, w, x, v0);
+          store3(co, w, h + x, v1);
+        } else {
+          const u64 *c = c_in + j * c_rs + 3LL * slot * w;
+          v0 = load3(c, w, x);
+          v1 = load3(c, w, h + x);
+        }
+        fq3_mac(acc[j], T[j], v0);
+        fq3_mac(acc[2 + j], T[j], v1);
+      }
+    }
+  }
+  if (!SUMS) return;
+  // the block's sums of this slot -> partial[(slot * gridDim.x + bx) * 12]
+  __shared__ u64 red[WARPS][FC_VALS];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      u64 v = reduce192(acc[q][k]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v = gl_add(v, __shfl_down_sync(0xffffffffu, v, off));
+      if (lane == 0) red[warp][3 * q + k] = v;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < FC_VALS) {
+    u64 v = 0ULL;
+#pragma unroll
+    for (int wp = 0; wp < WARPS; ++wp) v = gl_add(v, red[wp][threadIdx.x]);
+    partial[((long long)slot * gridDim.x + blockIdx.x) * FC_VALS +
+            threadIdx.x] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x < 8 * FC_VALS) {
+    const int s = threadIdx.x / FC_VALS, k = threadIdx.x % FC_VALS;
+    const u64 *p = partial + (long long)s * gridDim.x * FC_VALS + k;
+    u64 v = 0ULL;
+#pragma unroll 8
+    for (unsigned b = 0; b < gridDim.x; ++b)
+      v = gl_add(v, __ldcg(p + (long long)b * FC_VALS));
+    sums[(k / 3) * 24 + 3 * s + k % 3] = v;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The fold sum-check's end, one thread per (row, slot, x < w) of out (5 +
+// n_t, 24, w): rows 0, 2, 4 the eq rows (3, 24, w; row stride eq_rs) times
+// their weights scale (3, 3); rows 1, 3 the c rows (2, 24, 2w; row stride
+// c_rs) folded at r; rows 5 .. the tail rows t_in (n_t, 24, 2w), contiguous,
+// folded at r.
+__global__ void __launch_bounds__(BLOCK)
+    fold_c_end_kernel(const u64 *__restrict__ c_in, long long c_rs,
+                      const u64 *__restrict__ eq, long long eq_rs,
+                      const u64 *__restrict__ t_in, int n_t,
+                      const u64 *__restrict__ r3,
+                      const u64 *__restrict__ scale, u64 *__restrict__ out,
+                      long long w) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= (5LL + n_t) * 8 * w) return;
+  const long long x = i % w;
+  const int slot = (int)((i / w) % 8);
+  const int row = (int)(i / (8 * w));
+  Fq3 v;
+  if (row < 5 && row % 2 == 0) {
+    const int k = row / 2;
+    const u64 *e = eq + k * eq_rs + 3LL * slot * w;
+    v = fq3_mul(load3(e, w, x),
+                Fq3{scale[3 * k], scale[3 * k + 1], scale[3 * k + 2]});
+  } else {
+    const long long W = 2 * w;
+    const u64 *src = (row < 5 ? c_in + (row / 2) * c_rs
+                              : t_in + (row - 5) * 24LL * W) +
+                     3LL * slot * W;
+    const Fq3 a = load3(src, W, x), b = load3(src, W, w + x);
+    v = fq3_add(a, fq3_mul(Fq3{r3[0], r3[1], r3[2]}, fq3_sub(b, a)));
+  }
+  store3(out + (row * 24LL + 3 * slot) * w, w, x, v);
+}
+
 // Second pass: out[k] = sum over blocks of partial[b][k], k < nvals.
 __global__ void __launch_bounds__(BLOCK)
     reduce_partials_kernel(const u64 *__restrict__ partial,
@@ -518,6 +675,53 @@ int lt_lin_recon_fold(const u64 *X, u64 *out, int rows, long long w,
   const long long n = (long long)rows * 8 * out_w;
   lin_recon_fold_kernel<<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0,
                           stream>>>(X, out, rows, w, out_w, r3, scale);
+  return (int)cudaGetLastError();
+}
+
+static dim3 fold_c_grid(long long h) {
+  const long long nbx = (h + BLOCK - 1) / BLOCK;
+  return dim3((unsigned)(nbx < FC_MAX_BX ? nbx : FC_MAX_BX), 8);
+}
+
+// One fold round's c terms and eq pair sums (fold_c_kernel): r3 null reads
+// c_in (2, 24, w), else folds c_in (2, 24, 2w) at r3 into c_out.  partial
+// holds 8 x grid.x x 12 words; ticket is 0 and is left 0.
+int lt_fold_c_round(const u64 *c_in, long long c_rs, const u64 *eq,
+                    long long eq_rs, const u64 *r3, u64 *c_out, u64 *tn,
+                    u64 *partial, unsigned *ticket, u64 *sums, long long w,
+                    cudaStream_t stream) {
+  if (w < 2 || w % 2) return (int)cudaErrorInvalidValue;
+  const dim3 grid = fold_c_grid(w / 2);
+  if (r3)
+    fold_c_kernel<true, true><<<grid, BLOCK, 0, stream>>>(
+        c_in, c_rs, eq, eq_rs, 3, r3, c_out, tn, partial, ticket, sums, w);
+  else
+    fold_c_kernel<true, false><<<grid, BLOCK, 0, stream>>>(
+        c_in, c_rs, eq, eq_rs, 3, r3, c_out, tn, partial, ticket, sums, w);
+  return (int)cudaGetLastError();
+}
+
+// The pair sums alone (fold_c_kernel without c rows): eq (n_eq, 24, w),
+// row stride eq_rs -> tn (n_eq, 24, w / 2).
+int lt_pair_sum(const u64 *eq, long long eq_rs, int n_eq, u64 *tn,
+                long long w, cudaStream_t stream) {
+  if (w < 2 || w % 2 || n_eq < 1) return (int)cudaErrorInvalidValue;
+  fold_c_kernel<false, false><<<fold_c_grid(w / 2), BLOCK, 0, stream>>>(
+      nullptr, 0, eq, eq_rs, n_eq, nullptr, nullptr, tn, nullptr, nullptr,
+      nullptr, w);
+  return (int)cudaGetLastError();
+}
+
+// The fold sum-check's end (fold_c_end_kernel).
+int lt_fold_c_end(const u64 *c_in, long long c_rs, const u64 *eq,
+                  long long eq_rs, const u64 *t_in, int n_t, const u64 *r3,
+                  const u64 *scale, u64 *out, long long w,
+                  cudaStream_t stream) {
+  if (w < 1 || n_t < 0) return (int)cudaErrorInvalidValue;
+  const long long n = (5LL + n_t) * 8 * w;
+  fold_c_end_kernel<<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0,
+                      stream>>>(c_in, c_rs, eq, eq_rs, t_in, n_t, r3, scale,
+                                out, w);
   return (int)cudaGetLastError();
 }
 

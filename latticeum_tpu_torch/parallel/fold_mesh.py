@@ -106,9 +106,11 @@ def count_collectives(comm, fn, *args, **kwargs):
 
 
 def launches():
-    """The launch counts of the sum-checks' kernels: the four comb kernels
-    and round_tail (0 on the CPU, where their twins run)."""
+    """The launch counts of the sum-checks' kernels: the four comb kernels,
+    fold_c_round (with the pair sums and the end) and round_tail (0 on the
+    CPU, where their twins run)."""
     out = {w.__name__: w.launches for w in comb.WRAPPERS}
+    out["fold_c_round"] = comb.fold_c_round.launches
     out["round_tail"] = challenger.round_tail.launches
     return out
 

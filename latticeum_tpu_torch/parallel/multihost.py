@@ -79,7 +79,7 @@ def fold_round_global(comm=None, m=1 << 10, K=15, b_small=2, device="cpu"):
         tail = M.shard_cols(tail, comm.rank, comm.world)
     mu = accel_rounds._ints([list(v) for v in accel_rounds.mu_powers(
         inputs["mu_s"], K)], device)
-    sums, _, _ = accel_rounds.fold_round_sums(
+    sums, _, _, _ = accel_rounds.fold_round_sums(
         head[0::2], head[1:4:2], tail.contiguous(), mu, b_small, None)
     if comm is not None:
         sums = comm.all_reduce_field(sums)

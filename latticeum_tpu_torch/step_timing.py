@@ -37,12 +37,23 @@ the durations of the kernels it traced, beside the fold's wall time, and
 ``device_by_kernel`` lists its 25 largest kernels by name (launches and
 summed device seconds), ``device_ranges`` the calls, kernels and their
 summed device seconds of the eq tables (``Engine.eq_table``, every layout
-and caller), the COO matvecs (``Engine.mz_stack``, ``Engine.mt_eq_stack``),
-the fold head (``TorchNifs._build_head``, its three eq tables included),
-the ring's CRT and ICRT (``rq.crt``, ``rq.icrt``, every caller) and the lin
-sum-check's reconstruction rounds (``accel_rounds._lin_reconstruct``),
-each traced as a ``torch.profiler.record_function`` range (the kernels
-that ran inside its span on the device), and ``device_htod`` the fold's
+and caller), the COO matvecs (``Engine.mz_stack``, ``Engine.mt_eq_stack``,
+and ``Engine.mz_challenged``, the fold head's COO part), the fold head
+(``TorchNifs._build_head``, its three eq tables included), the ring's CRT
+and ICRT (``rq.crt``, ``rq.icrt``, every caller), the lin sum-check's
+reconstruction rounds (``accel_rounds._lin_reconstruct``) and, per
+sum-check (``[lin]``, ``[fold]``), the eq pair sums and the fold round's c
+terms (``PER_LABEL``: the kernels ``comb.fold_c_round``, ``pair_sum``,
+``fold_c_end``, or an earlier tree's plain torch ``_pair_sum``,
+``_contract``, ``comb.fold_t``), the NIFS phases (``lin_prove``,
+``dec_prove``, ``fold_prove``) and the sum-check runners, and, per phase,
+the owners of the other plain-torch launches (``rq.ntt_mul``,
+``_commit_many``, ``_fhat_t``, ``witness_from_f``, the gadget
+decompositions, the claims), each traced as a
+``torch.profiler.record_function`` range (the kernels that ran inside its
+span on the device, nested ranges counting a kernel in each; a name that
+the checkout at ``--root`` lacks is not traced), and ``device_htod`` the
+fold's
 host -> device copies, with those made from pageable memory apart (each
 waits for the stream before it).  Those three steps' times include the
 profilers.
@@ -181,37 +192,78 @@ RANGE = "step_timing:"
 TOP_KERNELS = 25
 
 
+# Ranges that label the calls inside them: the NIFS phases and the two
+# sum-check runners ("lin", "fold").
+LABELS = {"lin_prove": "lin_prove", "dec_prove": "dec_prove",
+          "fold_prove": "fold_prove", "run_lin_rounds_factored": "lin",
+          "run_fold_rounds_factored": "fold"}
+# Calls of these names are ranged per label, "name [label]" for the
+# innermost label around them: the eq pair sums and the fold round's c
+# terms, as kernels (comb.fold_c_round, pair_sum, fold_c_end) or as the
+# plain torch of earlier trees (accel_rounds._pair_sum, _contract,
+# comb.fold_t), which lin and fold rounds share; and the owners of the
+# other plain-torch launches of a fold.
+PER_LABEL = ("fold_c_round", "pair_sum", "fold_c_end", "_pair_sum",
+             "_contract", "fold_t", "ntt_mul", "_commit_many", "_fhat_t",
+             "witness_from_f", "gadget_recompose",
+             "decompose_vec_into_k_vecs", "eval_fhat", "eval_claims")
+
+
 @contextlib.contextmanager
 def traced_ranges(torch):
-    """Engine.eq_table, Engine.mz_stack, Engine.mt_eq_stack,
-    TorchNifs._build_head, rq.crt, rq.icrt and accel_rounds.
-    _lin_reconstruct, each call inside a torch.profiler.record_function
-    range named RANGE + its name."""
-    from latticeum_tpu_torch.ring import rq
-    from latticeum_tpu_torch.zkvm import accel_rounds
+    """Each call of Engine.eq_table, Engine.mz_stack, Engine.mt_eq_stack,
+    Engine.mz_challenged (the fold head's COO part), TorchNifs._build_head,
+    rq.crt, rq.icrt, accel_rounds._lin_reconstruct, the LABELS and the
+    PER_LABEL functions inside a torch.profiler.record_function range
+    named RANGE + its name (with its label, PER_LABEL); a name the
+    checkout lacks is skipped.  Ranges nest: a kernel counts in each range
+    around it."""
+    from latticeum_tpu_torch.ring import decompose, rq
+    from latticeum_tpu_torch.zkvm import accel_rounds, claims, comb
     from latticeum_tpu_torch.zkvm.accel import Engine
     from latticeum_tpu_torch.zkvm.accel_nifs import TorchNifs
-    saved = [(owner, name, getattr(owner, name))
-             for owner, name in ((Engine, "eq_table"), (Engine, "mz_stack"),
-                                 (Engine, "mt_eq_stack"),
-                                 (TorchNifs, "_build_head"), (rq, "crt"),
-                                 (rq, "icrt"),
-                                 (accel_rounds, "_lin_reconstruct"))]
+    targets = ((Engine, "eq_table"), (Engine, "mz_stack"),
+               (Engine, "mt_eq_stack"), (Engine, "mz_challenged"),
+               *((TorchNifs, n) for n in (
+                   "_build_head", "lin_prove", "dec_prove", "fold_prove",
+                   "_commit_many", "_fhat_t", "witness_from_f")),
+               (rq, "crt"), (rq, "icrt"), (rq, "ntt_mul"),
+               *((accel_rounds, n) for n in (
+                   "_lin_reconstruct", "run_lin_rounds_factored",
+                   "run_fold_rounds_factored", "_pair_sum", "_contract")),
+               *((comb, n) for n in ("fold_c_round", "pair_sum",
+                                     "fold_c_end", "fold_t")),
+               (decompose, "gadget_recompose"),
+               (decompose, "decompose_vec_into_k_vecs"),
+               (claims, "eval_fhat"), (claims, "eval_claims"))
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets
+             if hasattr(owner, name)]
+    where = []
 
     def ranged(name, fn):
+        label = LABELS.get(name)
+
         @functools.wraps(fn)      # a kernel wrapper's launch count too
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(RANGE + name):
-                return fn(*args, **kwargs)
+            tag = (f"{name} [{where[-1]}]" if where and name in PER_LABEL
+                   else name)
+            if label:
+                where.append(label)
+            try:
+                with torch.profiler.record_function(RANGE + tag):
+                    return fn(*args, **kwargs)
+            finally:
+                if label:
+                    where.pop()
         return wrapped
 
-    for cls, name, fn in saved:
-        setattr(cls, name, ranged(name, fn))
+    for owner, name, fn in saved:
+        setattr(owner, name, ranged(name, fn))
     try:
         yield
     finally:
-        for cls, name, fn in saved:
-            setattr(cls, name, fn)
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
 
 
 def device_busy(fn, torch, detail=False):

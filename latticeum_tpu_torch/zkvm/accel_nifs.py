@@ -96,13 +96,11 @@ class TorchNifs:
         else:
             self.ajtai_rows = gl.from_limbs(scheme.rows_limbs, dev)
         self._cap = engine.max_row + 1
-        self._cap_pow2 = min(1 << (self._cap - 1).bit_length(), ccs.m)
+        self._cap_pow2 = engine.cap_pow2
         signs = lin_c_signs(ccs.c)
         self._lin_sets = (comb.lin_sets(ccs.S, signs, ccs.t, dev)
                           if signs is not None else
                           comb.lin_sets_general(ccs.S, ccs.c, ccs.t, dev))
-        self._lin_row_pos = brev_on(self._cap_pow2, dev)[engine.rows]
-        self._fold_row_pos = brev_on(ccs.m, dev)[engine.rows]
 
     @property
     def device(self):
@@ -159,10 +157,10 @@ class TorchNifs:
     def lin_g_t(self, z, beta_s):
         """(t+1, 24, m') stack: each M_j z segment-summed straight into
         bit-reversed row positions, then the eq(beta) row; m' = cap rounded
-        up to a power of two."""
+        up to a power of two.  Both written in place by their kernels."""
         m, t = self._cap_pow2, self.ccs.t
         g = torch.empty((t + 1, 24, m), dtype=gl.DTYPE, device=self.device)
-        g[:t] = self.e.mz_stack(z, m, self._lin_row_pos).transpose(1, 2)
+        self.e.mz_stack(z, out=g[:t])
         self.e.eq_table(beta_s, m, t_layout=True, out=g[t])
         return g
 
@@ -234,7 +232,8 @@ class TorchNifs:
 
         the eq rows and the alpha-sums written in place by their kernels
         (``tables``), then the challenged z per COO entry, segment-summed
-        straight into bit-reversed rows, added to each c row."""
+        straight into bit-reversed rows, added to each c row by one
+        ``coo_matvec`` (``Engine.mz_challenged``)."""
         ccs, e, dev = self.ccs, self.e, self.device
         K, m, t = self.p.K, ccs.m, ccs.t
         apows = []
@@ -252,14 +251,7 @@ class TorchNifs:
             e.eq_table(pt, m, t_layout=True, out=head[row])
         tables.head_alpha(tail, alpha, head[1], head[3])
         for row, lo, hi in ((1, 0, K), (3, K, 2 * K)):
-            zg = None
-            for i in range(lo, hi):
-                zc = zeta[i][e.mats]                           # (nnz, 3)
-                term = rq.ntt_scalar_mul(zs[i][e.cols],
-                                         tuple(zc[:, c] for c in range(3)))
-                zg = term if zg is None else gl.add(zg, term)
-            mz = gl.segment_sum(e.coo_mul(zg), self._fold_row_pos, m)
-            head[row] = gl.add(head[row], mz.T)
+            e.mz_challenged(zs[lo:hi], zeta[lo:hi], head[row])
         return head
 
     def fold_prove(self, cm_i_s, transcript, batches, log=None):

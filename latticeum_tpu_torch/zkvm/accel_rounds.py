@@ -148,16 +148,6 @@ def _take_up(transcript, msgs, chals, state):
     return proof, out
 
 
-def _pair_sum(x):
-    half = x.shape[-1] // 2
-    return gl.add(x[..., :half], x[..., half:])
-
-
-def _contract(a, b):
-    """sum_x ntt_mul_t(a, b) over the minor axis -> (..., 24)."""
-    return gl.sum_axis(rq.ntt_mul_t(a, b), -1)
-
-
 def _gather_round(width, world, rounds):
     """The round at whose start a sharded sum-check over `width` global
     columns all-gathers them: the first whose comb kernel would get fewer
@@ -277,7 +267,7 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
     for r in range(n_fact):
         if r == gather:
             mz, eq = comm.all_gather_cols(mz, eq)
-        Tc = _pair_sum(eq).contiguous()
+        Tc = comb.pair_sum(eq)
         if r == 0:
             Sq = comb.lin_round0(mz.contiguous(), Tc, sets, npts_q)
         else:
@@ -313,18 +303,19 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
 def fold_round_sums(eqs, c2r, t_s, mu, b_small, r3):
     """One fold round over the columns at hand: the sums [h at 2*b_small
     points, c1 and c2 at 0, c1 and c2 at 1] (2*b_small + 4, 24), the
-    pair-summed eq tables, and the f_hat rows (folded at r3 first, after
-    round 0: r3 None)."""
-    half = c2r.shape[-1] // 2
-    Tn = _pair_sum(eqs)                                      # (3, 24, half)
-    Sc0 = _contract(Tn[:2], c2r[..., :half])                 # (2, 24)
-    Sc1 = _contract(Tn[:2], c2r[..., half:])
-    Tb = Tn[2].contiguous()
+    pair-summed eq tables, and the c and f_hat rows (after round 0 folded
+    at r3 first; r3 None at round 0).  Two launches fill the sums' rows:
+    comb.fold_c_round the c terms (and the pair sums, which the tail comb
+    reads), the tail comb the h sums."""
+    npts = 2 * b_small
+    sums = torch.empty((npts + 4, 24), dtype=gl.DTYPE, device=t_s.device)
+    c2r, Tn = comb.fold_c_round(c2r, eqs, r3, sums[npts:])
     if r3 is None:
-        Sh = comb.fold_round0(t_s, Tb, mu, b_small)
+        comb.fold_round0(t_s, Tn[2], mu, b_small, out=sums[:npts])
     else:
-        Sh, t_s = comb.fold_roundr(t_s, Tb, mu, r3, b_small)
-    return torch.cat([Sh, Sc0, Sc1]), Tn, t_s
+        _, t_s = comb.fold_roundr(t_s, Tn[2], mu, r3, b_small,
+                                  out=sums[:npts])
+    return sums, Tn, c2r, t_s
 
 
 def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
@@ -338,8 +329,9 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
     into the f_hat rows (fold_roundr) and the c rows, pair-sums the three eq
     tables, evaluates h at 2*b_small points over the tail (T_beta-weighted,
     fold_round0 / fold_roundr) and the two linear c terms at {0, 1}
-    (T_r-weighted); the round tail extends and weights the three tables'
-    sums into the message.  With a communicator `comm`, head and tail are
+    (T_r-weighted; comb.fold_c_round); the round tail extends and weights
+    the three tables' sums into the message.  One comb.fold_c_end launch
+    makes the final rows.  With a communicator `comm`, head and tail are
     this rank's strided column shards (see the module docstring).  Returns
     (proof, chals, final): host ints, and the final rows [eq1, c1, eq2, c2,
     eq_beta, f_hat...] as a host tensor."""
@@ -365,20 +357,13 @@ def run_fold_rounds_factored(transcript, head, tail, nv, degree, mu_s,
     for r in range(nv):
         if r == gather:
             t_s, c2r, eqs = comm.all_gather_cols(t_s, c2r, eqs)
-        if r:
-            c2r = comb.fold_t(c2r, chals[r - 1])
-        sums, eqs, t_s = fold_round_sums(eqs, c2r, t_s, mu, b_small,
-                                         chals[r - 1] if r else None)
+        sums, eqs, c2r, t_s = fold_round_sums(eqs, c2r, t_s, mu, b_small,
+                                              chals[r - 1] if r else None)
         if r < gather:
             sums = comm.all_reduce_field(sums)
         challenger.round_tail(sums, lag, points, E, state,
                               _pending(pend0, chals, r), msgs, chals, r)
-    last = chals[nv - 1]
-    t_s = comb.fold_t(t_s, last)
-    c2r = comb.fold_t(c2r, last)
-    eqr = [rq.ntt_scalar_mul_t(eqs[i], fq3.of(E[i])) for i in range(3)]
-    head_f = torch.stack([eqr[0], c2r[0], eqr[1], c2r[1], eqr[2]])
-    final = torch.cat([head_f, t_s])[..., 0]
+    final = comb.fold_c_end(c2r, eqs, t_s, chals[nv - 1], E)[..., 0]
     msgs, chals, final, state = _fetch(msgs, chals, final, state)
     proof, out = _take_up(transcript, msgs, chals, state)
     if log:

@@ -1,11 +1,13 @@
-"""The four sum-check comb kernels and the lin reconstruction round: wrappers,
-plain-torch twins, launch counts.
+"""The four sum-check comb kernels, the lin reconstruction round and the
+fold round's c pass: wrappers, plain-torch twins, launch counts.
 
 Counterparts of the Pallas kernels in ``latticeum_tpu/zkvm/pallas_comb.py``
 (``fold_round0_pallas``, ``fold_roundr_pallas``, ``lin_round0_pallas``,
-``lin_roundr_pallas``) and of the reconstruction rounds of the XLA
-``latticeum_tpu/zkvm/accel_dev_fs.py:212`` ``run_fixed_phase_dev``; the CUDA
-bodies are in ``csrc/comb.cu``.
+``lin_roundr_pallas``), of the reconstruction rounds of the XLA
+``latticeum_tpu/zkvm/accel_dev_fs.py:212`` ``run_fixed_phase_dev`` and of the
+XLA half of the fold round, ``latticeum_tpu/zkvm/accel_rounds.py:403``
+``_make_round_pallas`` (its ``_fold_t`` of the c rows, ``_pair_sum`` of the
+eq tables and the c terms); the CUDA bodies are in ``csrc/comb.cu``.
 
 All arrays are t-layout int64 Goldilocks tensors, (rows, 24, width) with
 slot-major ring positions 3*s + c and the (bit-reversed) hypercube on the
@@ -35,6 +37,17 @@ minor axis, so a sum-check round pairs column x with column x + half.
   at r3 (X width 2w), the last row times scale3 where given, and
   out[..., w:] = 0.  Both count their launches in
   ``lin_recon_round.launches``.
+* ``fold_c_round(c2r, eqs, r3, sums)``: a fold round's c terms and eq pair
+  sums, one launch: c2r (2, 24, w) read as it is (r3 None) or (2, 24, 2w)
+  folded at r3 first; Tn = the pair sums of eqs (3, 24, w), (3, 24, w/2);
+  sums (4, 24) <- [sum_x Tn[j] c[j][x], j = 0, 1; sum_x Tn[j] c[j][h + x],
+  j = 0, 1] over x < h = w/2, the rows of the round's sums after the tail
+  comb's.  Returns (c, Tn).  c2r and eqs may be any views whose rows are
+  contiguous (the fold head's interleaved rows).  ``pair_sum(eq)`` is the
+  same kernel without c rows (the lin rounds' eq table) and
+  ``fold_c_end(c2r, eqs, t_s, r3, E)`` the sum-check's end: [eq_i E_i,
+  c_j folded at r3, interleaved; t_s folded at r3].  All three count
+  their launches in ``fold_c_round.launches``.
 
 The lin constants c_i are +-1 signs (``lin_sets``: the zkVM's own CCS, as
 the Pallas lin kernels take them) or any rings (``lin_sets_general``):
@@ -129,6 +142,17 @@ def fold_t(X, r3):
     w = X.shape[-1] // 2
     v0, v1 = X[..., :w], X[..., w:]
     return gl.add(v0, rq.ntt_scalar_mul_t(gl.sub(v1, v0), fq3.of(r3)))
+
+
+def pair_sum_twin(x):
+    """(..., 24, w) -> (..., 24, w/2): the sum of the two halves."""
+    half = x.shape[-1] // 2
+    return gl.add(x[..., :half], x[..., half:])
+
+
+def contract_twin(a, b):
+    """sum_x ntt_mul_t(a, b) over the minor axis -> (..., 24)."""
+    return gl.sum_axis(rq.ntt_mul_t(a, b), -1)
 
 
 def _slot_major(s3):
@@ -268,6 +292,28 @@ def lin_recon_fold_twin(X, r3, out, scale3=None):
     return out
 
 
+def fold_c_round_twin(c2r, eqs, r3=None):
+    """A fold round's c terms as the port first ran them: the c rows'
+    fold, the eq tables' pair sums and two contractions.  Returns (c, Tn,
+    sums (4, 24))."""
+    if r3 is not None:
+        c2r = fold_t(c2r, r3)
+    half = c2r.shape[-1] // 2
+    Tn = pair_sum_twin(eqs)                                  # (3, 24, half)
+    Sc0 = contract_twin(Tn[:2], c2r[..., :half])             # (2, 24)
+    Sc1 = contract_twin(Tn[:2], c2r[..., half:])
+    return c2r, Tn, torch.cat([Sc0, Sc1])
+
+
+def fold_c_end_twin(c2r, eqs, t_s, r3, E):
+    """The fold sum-check's final rows as the port first ran them: the
+    tail and c rows folded at r3, each eq row times its weight E[i]."""
+    t_s, c2r = fold_t(t_s, r3), fold_t(c2r, r3)
+    eqr = [rq.ntt_scalar_mul_t(eqs[i], fq3.of(E[i])) for i in range(3)]
+    return torch.cat([torch.stack([eqr[0], c2r[0], eqr[1], c2r[1],
+                                   eqr[2]]), t_s])
+
+
 # -- wrappers ------------------------------------------------------------------
 
 def _fold_check(X, Tb, mu, b_small, width_mult):
@@ -283,33 +329,42 @@ def _fold_check(X, Tb, mu, b_small, width_mult):
     return rows, q
 
 
-def fold_round0(X, Tb, mu, b_small):
-    """Fold sum-check round 0 (replaces pallas_comb.fold_round0_pallas)."""
+def _sums_out(out, npts, device):
+    if out is None:
+        return torch.empty((npts, 24), dtype=gl.DTYPE, device=device)
+    _check("out", out, (npts, 24))
+    return out
+
+
+def fold_round0(X, Tb, mu, b_small, out=None):
+    """Fold sum-check round 0 (replaces pallas_comb.fold_round0_pallas);
+    the sums into `out` (2 b_small, 24) where given."""
     rows, q = _fold_check(X, Tb, mu, b_small, 2)
-    if _route((X, Tb, mu)) == "cpu":
-        return fold_round0_twin(X, Tb, mu, b_small)
     npts = 2 * b_small
+    out = _sums_out(out, npts, X.device)
+    if _route((X, Tb, mu, out)) == "cpu":
+        return out.copy_(fold_round0_twin(X, Tb, mu, b_small))
     nbx = -(-q // BLOCK)
     partial = torch.empty((nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
-    out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
     _launch("lt_fold_round0", _ptr(X), _ptr(Tb), _ptr(mu), _ptr(partial),
             _ptr(out), rows, q, b_small, _stream())
     fold_round0.launches += 1
     return out
 
 
-def fold_roundr(X, Tb, mu, r3, b_small):
+def fold_roundr(X, Tb, mu, r3, b_small, out=None):
     """Fold sum-check round r >= 1, fold fused (replaces
-    pallas_comb.fold_roundr_pallas)."""
+    pallas_comb.fold_roundr_pallas); the sums into `out` where given."""
     rows, q = _fold_check(X, Tb, mu, b_small, 4)
     _check("r3", r3, (3,))
-    if _route((X, Tb, mu, r3)) == "cpu":
-        return fold_roundr_twin(X, Tb, mu, r3, b_small)
     npts = 2 * b_small
+    out = _sums_out(out, npts, X.device)
+    if _route((X, Tb, mu, r3, out)) == "cpu":
+        S, F = fold_roundr_twin(X, Tb, mu, r3, b_small)
+        return out.copy_(S), F
     nbx = -(-q // BLOCK)
     F = torch.empty((rows, 24, 2 * q), dtype=gl.DTYPE, device=X.device)
     partial = torch.empty((nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
-    out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
     _launch("lt_fold_roundr", _ptr(X), _ptr(F), _ptr(Tb), _ptr(mu),
             _ptr(partial), _ptr(out), rows, q, _ptr(r3), b_small, _stream())
     fold_roundr.launches += 1
@@ -430,13 +485,110 @@ def lin_recon_fold(X, r3, out, scale3=None):
     return out
 
 
+FC_MAX_BX = 64       # csrc/comb.cu: column blocks a slot of fold_c_kernel
+_tickets = {}
+
+
+def _ticket(device):
+    """fold_c_kernel's block ticket on `device`: zeroed once, and left zero
+    by every launch."""
+    if device not in _tickets:
+        _tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[device]
+
+
+def _row_stride(name, x, rows, width):
+    """The row stride of x (rows, 24, width), int64, each row contiguous."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected int64")
+    if tuple(x.shape) != (rows, 24, width):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                         f"({rows}, 24, {width})")
+    if x.stride(-1) != 1 or x.stride(-2) != width:
+        raise ValueError(f"{name}: each row must be contiguous")
+    return x.stride(0)
+
+
+def _even_width(w):
+    if w % 2 or w < 2:
+        raise ValueError(f"pair-sum width {w} not a multiple of 2")
+
+
+def fold_c_round(c2r, eqs, r3, sums):
+    """A fold round's c terms and eq pair sums, one launch (replaces the
+    XLA half of accel_rounds._make_round_pallas): returns (c, Tn) and
+    writes sums (4, 24)."""
+    w = eqs.shape[-1]
+    _even_width(w)
+    eq_rs = _row_stride("eqs", eqs, 3, w)
+    c_rs = _row_stride("c2r", c2r, 2, w if r3 is None else 2 * w)
+    _check("sums", sums, (4, 24))
+    args = (c2r, eqs, sums) + (() if r3 is None else (r3,))
+    if r3 is not None:
+        _check("r3", r3, (3,))
+    if _route(args) == "cpu":
+        c, Tn, S = fold_c_round_twin(c2r, eqs, r3)
+        sums.copy_(S)
+        return c, Tn
+    dev = eqs.device
+    Tn = torch.empty((3, 24, w // 2), dtype=gl.DTYPE, device=dev)
+    c = c2r if r3 is None else torch.empty((2, 24, w), dtype=gl.DTYPE,
+                                           device=dev)
+    nbx = min(-(-(w // 2) // BLOCK), FC_MAX_BX)
+    partial = torch.empty((8, nbx, 12), dtype=gl.DTYPE, device=dev)
+    _launch("lt_fold_c_round", _ptr(c2r), c_rs, _ptr(eqs), eq_rs,
+            None if r3 is None else _ptr(r3),
+            None if r3 is None else _ptr(c), _ptr(Tn), _ptr(partial),
+            _ptr(_ticket(dev)), _ptr(sums), w, _stream())
+    fold_c_round.launches += 1
+    return c, Tn
+
+
+def pair_sum(eq):
+    """(rows, 24, w) or (24, w), rows contiguous -> the pair sums (rows,
+    24, w/2) or (24, w/2), one launch of fold_c_round's kernel."""
+    w = eq.shape[-1]
+    _even_width(w)
+    flat = eq if eq.dim() == 3 else eq[None]
+    rs = _row_stride("eq", flat, flat.shape[0], w)
+    if _route((eq,)) == "cpu":
+        return pair_sum_twin(eq)
+    out = torch.empty(eq.shape[:-1] + (w // 2,), dtype=gl.DTYPE,
+                      device=eq.device)
+    _launch("lt_pair_sum", _ptr(eq), rs, flat.shape[0], _ptr(out), w,
+            _stream())
+    fold_c_round.launches += 1
+    return out
+
+
+def fold_c_end(c2r, eqs, t_s, r3, E):
+    """The fold sum-check's final rows (5 + n_t, 24, w): eq_i E_i at rows
+    0, 2, 4, the c rows (2, 24, 2w) folded at r3 at rows 1, 3, the tail
+    t_s (n_t, 24, 2w) folded at r3 after them; eqs (3, 24, w), E (3, 3).
+    One launch of fold_c_round's end kernel."""
+    w = eqs.shape[-1]
+    eq_rs = _row_stride("eqs", eqs, 3, w)
+    c_rs = _row_stride("c2r", c2r, 2, 2 * w)
+    n_t = t_s.shape[0]
+    _check("t_s", t_s, (n_t, 24, 2 * w))
+    _check("r3", r3, (3,))
+    _check("E", E, (3, 3))
+    if _route((c2r, eqs, t_s, r3, E)) == "cpu":
+        return fold_c_end_twin(c2r, eqs, t_s, r3, E)
+    out = torch.empty((5 + n_t, 24, w), dtype=gl.DTYPE, device=eqs.device)
+    _launch("lt_fold_c_end", _ptr(c2r), c_rs, _ptr(eqs), eq_rs, _ptr(t_s),
+            n_t, _ptr(r3), _ptr(E), _ptr(out), w, _stream())
+    fold_c_round.launches += 1
+    return out
+
+
 WRAPPERS = (fold_round0, fold_roundr, lin_round0, lin_roundr)
 TWINS = {fold_round0: fold_round0_twin, fold_roundr: fold_roundr_twin,
          lin_round0: lin_round0_twin, lin_roundr: lin_roundr_twin}
 
 
 def reset_launches():
-    for w in WRAPPERS + (lin_recon_round,):
+    for w in WRAPPERS + (lin_recon_round, fold_c_round):
         w.launches = 0
 
 

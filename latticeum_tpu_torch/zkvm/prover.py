@@ -46,6 +46,7 @@ from ..ring import rq
 from .accel import Engine
 from .accel_nifs import TorchNifs
 from .commitments import IncrementalMemTree, ZkVmCommitter
+from .tables import brev_on
 
 
 @dataclass
@@ -301,8 +302,8 @@ def relation_residual(engine, ccs, z):
     rows the matrices reach, rounded up to a power of two (at most m):
     (rows, 24), zero where z satisfies it.  Counterpart of the JAX
     ``ZkVmProver._relation_residual_device`` (prover.py:402)."""
-    rows = min(1 << engine.max_row.bit_length(), ccs.m)
-    mz = engine.mz_stack(z, rows, engine.rows)                # (t, rows, 24)
+    mz = engine.mz_stack(z)                                # (t, 24, rows)
+    mz = mz[..., brev_on(mz.shape[-1], mz.device)].transpose(1, 2)
     consts = gl.from_int([list(c) for c in ccs.c], engine.device)
     total = None
     for c, S in zip(consts, ccs.S):

@@ -1,7 +1,10 @@
 """The four comb kernels' plain-torch twins (what the wrappers run on CPU
 tensors) against the Pallas kernels' own bodies run without pallas_call
 (pallas_comb._accum_h / _lin_point under numpy) and against Python-int
-oracles (the oracle_sums pattern of scripts/pallas_ab.py).
+oracles (the oracle_sums pattern of scripts/pallas_ab.py); the fold
+round's c pass (fold_c_round, pair_sum, fold_c_end) against the XLA half
+of the JAX package's fold round (accel_rounds._fold_t, _pair_sum and the
+ntt_mul_t sums of _make_round_pallas) under numpy.
 
 Tolerance: none; the sums are exact mod p.  A test marked `cuda` holds the
 CUDA kernels against the twins; it needs a card and skips elsewhere."""
@@ -16,7 +19,11 @@ import torch
 from latticeum_tpu import backend as B
 from latticeum_tpu.field import fq3 as fq3_ref, host as H
 from latticeum_tpu.zkvm import pallas_comb as PC
-from latticeum_tpu.zkvm.accel_rounds import _fold_t as ref_fold_t, _fq3_limbs
+from latticeum_tpu.field import goldilocks as gl_ref
+from latticeum_tpu.ring import rq as rq_ref
+from latticeum_tpu.zkvm.accel_rounds import (_fold_t as ref_fold_t,
+                                             _fq3_limbs,
+                                             _pair_sum as ref_pair_sum)
 from latticeum_tpu_torch.field import goldilocks as gl
 from latticeum_tpu_torch.zkvm import comb
 
@@ -554,3 +561,154 @@ def test_cuda_kernels_match_twins():
             for a, b in zip(comb.lin_roundr(*args),
                             comb.lin_roundr_twin(*args)):
                 assert torch.equal(a, b)
+
+
+# -- the fold round's c pass ------------------------------------------------------
+
+def jax_c_round(c2r, eqs, r3):
+    """The XLA half of accel_rounds._make_round_pallas under numpy: the c
+    rows folded at r3 (where given), the eq pair sums, the four c sums."""
+    with B.numpy_mode():
+        c = limbs(c2r)
+        if r3 is not None:
+            c = ref_fold_t(c, _fq3_limbs(r3))
+        half = int(c[0].shape[-1]) // 2
+        Tn = ref_pair_sum(limbs(eqs))
+        Tr = (Tn[0][:2], Tn[1][:2])
+        sums = [gl_ref.sum_axis(rq_ref.ntt_mul_t(
+            Tr, (c[0][..., sl], c[1][..., sl])), axis=-1)
+            for sl in (slice(None, half), slice(half, None))]
+        return (ints(c), ints(Tn),
+                np.concatenate([ints(x) for x in sums]))
+
+
+def head_views(rng, w):
+    """A fold head (5, 24, w) with rows of p - 1, and its interleaved c
+    and eq views (row-strided, as the first round reads them)."""
+    head = rnd(rng, 5, 24, w)
+    head[1, :, :2] = P - 1
+    head[4] = P - 1
+    h = tt(head)
+    return head, h[1:4:2], h[0::2]
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("w", [2, 8, 64])
+def test_fold_c_round_twin_matches_jax(fold, w):
+    rng = np.random.default_rng(70 + w + fold)
+    head, c2r, eqs = head_views(rng, w)
+    c_u64 = head[1:4:2]
+    r3 = None
+    if fold:
+        c_u64 = rnd(rng, 2, 24, 2 * w)
+        c2r = tt(c_u64)
+        r3 = [int(v) for v in rnd(rng, 3)]
+    sums = torch.full((4, 24), 5, dtype=torch.int64)
+    c, Tn = comb.fold_c_round(c2r, eqs, None if r3 is None else
+                              tt(np.array(r3, np.uint64)), sums)
+    want_c, want_tn, want_sums = jax_c_round(c_u64, head[0::2], r3)
+    assert np.array_equal(gl.to_u64(c), want_c)
+    assert np.array_equal(gl.to_u64(Tn), want_tn)
+    assert np.array_equal(gl.to_u64(sums), want_sums)
+
+
+@pytest.mark.parametrize("shape", [(24, 2), (24, 16), (3, 24, 8)])
+def test_pair_sum_matches_jax(shape):
+    rng = np.random.default_rng(80 + shape[-1])
+    x = rnd(rng, *shape)
+    x[..., 0] = P - 1
+    got = comb.pair_sum(tt(x))
+    with B.numpy_mode():
+        want = ints(ref_pair_sum(limbs(x)))
+    assert np.array_equal(gl.to_u64(got), want)
+    assert got.shape == shape[:-1] + (shape[-1] // 2,)
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_fold_c_end_twin_matches_jax(w):
+    rng = np.random.default_rng(90 + w)
+    c2r, eqs, t_s = rnd(rng, 2, 24, 2 * w), rnd(rng, 3, 24, w), \
+        rnd(rng, 6, 24, 2 * w)
+    eqs[0] = P - 1
+    r3, E = [int(v) for v in rnd(rng, 3)], rnd(rng, 3, 3)
+    got = comb.fold_c_end(tt(c2r), tt(eqs), tt(t_s),
+                          tt(np.array(r3, np.uint64)), tt(E))
+    cf, tf = ref_fold(c2r, r3), ref_fold(t_s, r3)
+    with B.numpy_mode():
+        eqr = [ints(rq_ref.ntt_scalar_mul_t(
+            limbs(eqs[i]), _fq3_limbs(E[i]))) for i in range(3)]
+    want = np.concatenate([np.stack([eqr[0], cf[0], eqr[1], cf[1], eqr[2]]),
+                           tf])
+    assert np.array_equal(gl.to_u64(got), want)
+
+
+def test_fold_c_wrappers_validate_their_arguments():
+    eqs = torch.zeros((3, 24, 8), dtype=torch.int64)
+    sums = torch.zeros((4, 24), dtype=torch.int64)
+    with pytest.raises(ValueError):          # c rows of the wrong width
+        comb.fold_c_round(torch.zeros((2, 24, 4), dtype=torch.int64), eqs,
+                          None, sums)
+    with pytest.raises(ValueError):          # unfolded c rows twice as wide
+        comb.fold_c_round(torch.zeros((2, 24, 8), dtype=torch.int64), eqs,
+                          torch.zeros(3, dtype=torch.int64), sums)
+    with pytest.raises(ValueError):          # rows not contiguous
+        comb.fold_c_round(torch.zeros((2, 24, 16), dtype=torch.int64)[..., ::2],
+                          eqs, None, sums)
+    with pytest.raises(ValueError):
+        comb.pair_sum(torch.zeros((24, 3), dtype=torch.int64))
+    with pytest.raises(TypeError):
+        comb.pair_sum(torch.zeros((24, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):          # E not (3, 3)
+        comb.fold_c_end(torch.zeros((2, 24, 2), dtype=torch.int64),
+                        eqs[..., :1].contiguous(),
+                        torch.zeros((4, 24, 2), dtype=torch.int64),
+                        torch.zeros(3, dtype=torch.int64),
+                        torch.zeros((3,), dtype=torch.int64))
+    comb.reset_launches()
+    comb.pair_sum(torch.zeros((24, 4), dtype=torch.int64))
+    assert comb.fold_c_round.launches == 0      # the twin ran
+
+
+@pytest.mark.cuda
+def test_cuda_fold_c_matches_twins():
+    """fold_c_round (first round on the head's interleaved rows, folded
+    rounds, one and several column blocks, widths where the grid stops at
+    FC_MAX_BX blocks a slot), pair_sum (one row, three rows) and
+    fold_c_end against their twins on the card, rows of p - 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(96)
+    dev = "cuda"
+
+    def d(u):
+        return tt(u).to(dev)
+    comb.reset_launches()
+    calls = 0
+    for w in (2, 4, 256, 1 << 12, 1 << 16):
+        head = rnd(rng, 5, 24, w)
+        head[1] = P - 1
+        head[0, :, :w // 2] = P - 1
+        hd = d(head)
+        for fold in (False, True):
+            c2r = d(rnd(rng, 2, 24, 2 * w)) if fold else hd[1:4:2]
+            r3 = d(rnd(rng, 3)) if fold else None
+            got_s = torch.zeros((4, 24), dtype=torch.int64, device=dev)
+            want_s = got_s.clone()
+            got = comb.fold_c_round(c2r, hd[0::2], r3, got_s)
+            want = comb.fold_c_round_twin(c2r, hd[0::2], r3)
+            calls += 1
+            assert torch.equal(got[0], want[0]), (w, fold)
+            assert torch.equal(got[1], want[1]), (w, fold)
+            want_s.copy_(want[2])
+            assert torch.equal(got_s, want_s), (w, fold)
+        for x in (hd[0], hd[0::2]):
+            assert torch.equal(comb.pair_sum(x), comb.pair_sum_twin(x))
+            calls += 1
+    for w in (1, 3):
+        c2r, eqs = d(rnd(rng, 2, 24, 2 * w)), d(rnd(rng, 5, 24, w))[0::2]
+        t_s, r3, E = d(rnd(rng, 90, 24, 2 * w)), d(rnd(rng, 3)), \
+            d(rnd(rng, 3, 3))
+        assert torch.equal(comb.fold_c_end(c2r, eqs, t_s, r3, E),
+                           comb.fold_c_end_twin(c2r, eqs, t_s, r3, E))
+        calls += 1
+    assert comb.fold_c_round.launches == calls

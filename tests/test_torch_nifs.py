@@ -197,8 +197,12 @@ def test_engine_primitives_match_reference():
     point = [tuple(int(v) for v in rng.integers(0, gl.P, 3, dtype=np.uint64))
              for _ in range(ccs.s)]
     with B.numpy_mode():
-        mz = e.mz_stack(e.put(zl), ccs.m, e.rows)
-        assert same(mz, ccs.matvecs(zl))
+        # the t-layout stack (t, 24, cap_pow2), row i at column bitrev(i)
+        mz = e.mz_stack(e.put(zl))
+        cap = e.cap_pow2
+        mz = mz[..., torch.from_numpy(bitrev_indices(
+            (cap - 1).bit_length()))].transpose(1, 2)
+        assert same(mz, ccs.matvecs(zl, cap))
         for rows in (None, 5, 1 << ccs.s):
             assert same(e.eq_table(point, rows),
                         mle.build_eq_table(point, max_rows=rows)

@@ -8,13 +8,14 @@ in csrc/tables.cu) against the JAX package.
   standard layout and in the bit-reversed t-layout.
 * ``head_alpha``: the twin plus the challenged-z COO part, i.e. the whole
   ``TorchNifs._build_head``, against JAX ``DeviceNifs._build_head`` on the
-  ``nifs/test_fixtures.py`` shapes; and the alpha-sums alone against a
-  Python-int oracle.
+  ``nifs/test_fixtures.py`` shapes, with ring and with scalar matrix
+  values; and the alpha-sums alone against a Python-int oracle.
 * On the card (``cuda`` marker): each kernel against its twin on random
   canonical inputs with rows of p - 1.
 
 Tolerance: none (exact integers)."""
 
+import dataclasses
 import types
 
 import numpy as np
@@ -159,12 +160,32 @@ def test_head_alpha_checks_shapes():
                           c, c)
 
 
-def test_fold_head_matches_jax_build_head(jax_engine):
-    """TorchNifs._build_head (eq rows and alpha-sums by tables, the COO
-    part in plain torch) against DeviceNifs._build_head, on the test CCS
-    with random tail, z, alpha, zeta and points."""
-    from latticeum_tpu.zkvm.accel_nifs import DeviceNifs
+def scalar_test_ccs():
+    """The test CCS with its values (c, 0, 0) x 8 held as base-field
+    scalars c (SparseScalarMatrix), the zkVM's kind of matrix."""
+    from latticeum_tpu.nifs.structs import SparseScalarMatrix
     ccs = get_test_ccs()
+    mats = []
+    for M in ccs.M:
+        c = u64(M.vals)[:, 0]
+        mats.append(SparseScalarMatrix(
+            M.nrows, M.ncols, M.rows, M.cols,
+            ((c & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+             (c >> np.uint64(32)).astype(np.uint32))))
+    return dataclasses.replace(ccs, M=mats)
+
+
+@pytest.mark.parametrize("kind", ["ring", "scalar"])
+def test_fold_head_matches_jax_build_head(jax_engine, kind):
+    """TorchNifs._build_head (eq rows and alpha-sums by tables, the COO
+    part by the CSR segment sums, Engine.mz_challenged) against
+    DeviceNifs._build_head, on the test CCS (ring values) and on its
+    scalar form, with random tail, z, alpha, zeta and points."""
+    from latticeum_tpu.zkvm.accel import DeviceEngine
+    from latticeum_tpu.zkvm.accel_nifs import DeviceNifs
+    ccs = get_test_ccs() if kind == "ring" else scalar_test_ccs()
+    if kind == "scalar":
+        jax_engine = DeviceEngine(ccs, PARAMS)
     K, m = PARAMS.K, ccs.m
     rng = np.random.default_rng(8)
     tail = rand_u64(rng, 2 * K * TAU, 24, m)
