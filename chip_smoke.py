@@ -39,9 +39,12 @@ Phases (each prints its own lines; any failure exits non-zero):
               ring constants) and its fold alone, each timed by a CUDA
               graph beside its bound and the launch floor; fold_c_round
               (csrc/comb.cu) against its twin at every fold round width
-              2^17 ... 2 (round 0 on the head's row-strided rows), its
-              pair sums alone at the lin widths and its end mode, timed by
-              CUDA graphs beside their bounds; then (phase coo)
+              2^17 ... 2 (round 0 on the head's row-strided rows), the
+              clusters of its kernel the card holds at once, two launches
+              in flight on two streams (8 times, each against its twin:
+              ROADMAP C.h10), its pair sums alone at the lin widths and its
+              end mode, timed by CUDA graphs beside their bounds; then
+              (phase coo)
               coo_matvec (csrc/coo.cu) against its twin in the prover's
               three segment maps (M z, M^T eq with its 704-entry
               segments, the head's challenged z over K witnesses added in
@@ -54,7 +57,12 @@ Phases (each prints its own lines; any failure exits non-zero):
   5. ring     crt and icrt (ring/rq.py, csrc/ring.cu) against their dense
               twins at 15 x 98815 rings (dec's crt(ks)), 19,763 and
               98,815, with rows of p - 1 and edge values, each timed by a
-              CUDA graph beside its bound;
+              CUDA graph beside its bound; the ring multiply-accumulate
+              ring_mac (ring/rq.py, csrc/ringmac.cu) against its twins at
+              the fold's f0 (2K = 30 terms of 98,815 rings, two batches
+              read where they lie) and dec's row-constant commits (kappa
+              32 rings by K - 1 = 14 totals) and y0, each timed by a CUDA
+              graph beside its bound;
   6. claims   the digit-plane kernels (digit_split, plane_recombine) against
               their twins at edge shapes (several chunks, every padding) and
               at the four production shapes of the evaluation claims (dec u,
@@ -110,7 +118,10 @@ Phases (each prints its own lines; any failure exits non-zero):
               times a fold step (mz_stack; mt_eq_stack twice in dec and
               once in the fold; twice in the head), fold_c_round once a
               fold round, once a fold sum-check's end and once a factored
-              lin round, and ring_contract called; each
+              lin round, ring_mac's sum mode three times a fold step (f0,
+              and dec's y0 twice) and its product mode, ring_mul_each,
+              twice a fold step (dec's commits) and once a lin sum-check
+              (the commit of its witness), and ring_contract called; each
               prove_vm's tree time and its parts; every lin and fold
               sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
@@ -168,7 +179,9 @@ multiply-adds that its unreduced sums need (9 an Fq3 product, 3 a scalar
 one, a reduction an output or a head entry) and its bytes, the rows
 gathered counted once and only the head's non-empty rows read back;
 fold_c_round from its pair sums, its four unreduced Fq3 products a column
-and its folds, beside its bytes.
+and its folds, beside its bytes; ring_mac from its 9 multiply-adds a
+term and slot (unreduced), a reduction an output and the constants' w c1
+and w c2, beside its bytes (each term read once, the batches not copied).
 """
 
 import contextlib
@@ -183,6 +196,7 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+STARTED = time.time()
 # acc_comm[0] after steps 1-3 of xorshift_guest(64) at default_params() and
 # scheme seed 0.  Every fold behind them passes the host NIFS verifier, and
 # the step-1 linearization and decomposition proofs equal the host prover's.
@@ -309,7 +323,8 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "crt": "latticeum_tpu/ring/rq.py:61",
                "lin_recon_round": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
                "coo_matvec": "latticeum_tpu/zkvm/accel.py:117",
-               "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403"}
+               "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403",
+               "ring_mac": "latticeum_tpu/zkvm/accel_nifs.py:796"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
 CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
@@ -317,6 +332,7 @@ TABLES_SOURCE = "latticeum_tpu_torch/csrc/tables.cu"
 RING_SOURCE = "latticeum_tpu_torch/csrc/ring.cu"
 COMB_SOURCE = "latticeum_tpu_torch/csrc/comb.cu"
 COO_SOURCE = "latticeum_tpu_torch/csrc/coo.cu"
+RINGMAC_SOURCE = "latticeum_tpu_torch/csrc/ringmac.cu"
 # A fold sum-check on the main path makes fewer device launches than this
 # (kernels and copies, counted by torch.profiler): a round's fold_c_round,
 # tail comb (two launches) and round_tail, the end, the uploads and fetch.
@@ -347,7 +363,7 @@ def log(msg):
 
 
 def phase(name):
-    log(f"== {name}")
+    log(f"== {name} (at {time.time() - STARTED:.0f} s)")
 
 
 def fail(msg):
@@ -412,6 +428,7 @@ def main():
 
     phase("ring")
     records += ring_checks(torch, np, gl, rq, dev, rate, mix)
+    records += ringmac_checks(torch, np, gl, rq, prover, dev, rate, mix)
 
     phase("claims")
     records += claims_checks(torch, np, gl, mxu, prover, dev, rate, mix)
@@ -463,6 +480,7 @@ def main():
     launches["lin_recon_round"] = comb.lin_recon_round.launches
     launches["coo_matvec"] = accel.coo_matvec.launches
     launches["fold_c_round"] = comb.fold_c_round.launches
+    launches["ring_mac"] = rq.ring_mac.launches + rq.ring_mul_each.launches
     contractions = mxu.ring_contract.calls
     log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
         f"{sumchecks['fold']} fold, each with exactly one device -> host "
@@ -497,6 +515,17 @@ def main():
     if launches["coo_matvec"] != want_coo:
         fail(f"coo_matvec launched {launches['coo_matvec']} times, not "
              f"{want_coo} (one a lin, five a fold step)")
+    # the sum mode: f0 and dec's y0 twice, a fold step; the product mode:
+    # dec's commits twice a fold step and the commit of each lin sum-check's
+    # witness (commit_z, the initial accumulator's)
+    want_mac = 3 * sumchecks["fold"]
+    want_each = 2 * sumchecks["fold"] + sumchecks["lin"]
+    if rq.ring_mac.launches != want_mac or \
+            rq.ring_mul_each.launches != want_each:
+        fail(f"ring_mac launched {rq.ring_mac.launches} times, not "
+             f"{want_mac} (f0 and dec's y0 twice, a fold step), and "
+             f"ring_mul_each {rq.ring_mul_each.launches}, not {want_each} "
+             "(dec's commits twice a fold step, a commit a lin sum-check)")
     want_fc = sumchecks["fold"] * (ccs.s + 1) + sumchecks["lin"] * n_fact
     if launches["fold_c_round"] != want_fc:
         fail(f"fold_c_round launched {launches['fold_c_round']} times, not "
@@ -1531,6 +1560,76 @@ def ring_checks(torch, np, gl, rq, dev, rate, mix):
     return [rec]
 
 
+def ringmac_checks(torch, np, gl, rq, prover, dev, rate, mix):
+    """The ring multiply-accumulate (ring/rq.py ring_mac, ring_mul_each;
+    csrc/ringmac.cu) against its twins on the card, bit for bit, at the
+    main path's shapes: the fold's f0 over 2K witnesses of nf rings, read
+    from the two dec batches where they lie; dec's row-constant commits
+    (kappa rows by K - 1 totals) and its y0 (K - 1 terms with cm as the
+    base).  Rings of p - 1 and edge values.  Each timed by a CUDA graph of
+    20 beside its bound, each twin by CUDA events over one call.  Returns
+    the record at f0's shape."""
+    p = prover.params
+    K, kappa = p.K, p.KAPPA
+    nf = prover.layout.w_size * p.L              # a witness's f rings
+    rng = np.random.default_rng(23)
+    edges = np.array([0, 1, 0xFFFFFFFF, 1 << 32, gl.P - 1, 2], np.uint64)
+
+    def rings(*shape):
+        u = rng.integers(0, gl.P, shape + (24,), dtype=np.uint64)
+        flat = u.reshape(-1, 24)
+        flat[0] = gl.P - 1
+        flat[1:1 + len(edges)] = edges[:, None]
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    def cost(n, rows, reads, writes):
+        work = pipes(tally((8 * rows * n, {"mac192": 9}),
+                           (8 * rows, {"reduce192": 3}),
+                           (8 * n, {"mul_w": 2})), mix)
+        return 8 * 24 * (reads + writes), work
+
+    worst, rec = 0, None
+    parts = (rings(K, nf), rings(K, nf))
+    rho = rings(2 * K)
+    rows_u, tot, cm, bp = rings(kappa), rings(K - 1), rings(kappa), \
+        rings(K - 1)
+    cases = (
+        ("f0", 2 * K, nf, lambda: rq.ring_mac(parts, rho),
+         lambda: rq.ring_mac_twin(parts, rho),
+         (2 * K * nf + 2 * K, nf)),
+        ("dec commits", K - 1, kappa, lambda: rq.ring_mul_each(rows_u, tot),
+         lambda: rq.ring_mul_each_twin(rows_u, tot),
+         (kappa + K - 1, (K - 1) * kappa)))
+    for label, n, rows, fn, twin, (reads, writes) in cases:
+        e = u64_err(gl, np, fn(), twin())
+        worst = max(worst, e)
+        if e:
+            fail(f"ring_mac {label}: max_abs_err={e} against its twin")
+        ms = graph_ms(torch, fn, 20)
+        plain = cuda_ms(torch, twin, 1)
+        nbytes, work = cost(n, rows, reads, writes)
+        b_ms, _, limit = bound(rate, nbytes, work)
+        log(f"ring_mac {label} ({n} terms x {rows} rings): bit-exact with "
+            f"the twin; {ms:.4f} ms (CUDA graph of 20), bound {b_ms:.4f} ms "
+            f"by {limit}, {100 * b_ms / ms:.1f} % of it; twin {plain:.3f} ms")
+        if label == "f0":
+            rec = record("ring_mac", RINGMAC_SOURCE, 0, ms, plain, rate,
+                         nbytes, work)
+    cms = rq.ring_mul_each(rows_u, tot)
+    e = u64_err(gl, np, rq.ring_mac((cms,), bp, base=cm),
+                rq.ring_mac_twin((cms,), bp, base=cm))
+    worst = max(worst, e)
+    if e:
+        fail(f"ring_mac y0: max_abs_err={e} against its twin")
+    ms = graph_ms(torch, lambda: rq.ring_mac((cms,), bp, base=cm), 20)
+    log(f"ring_mac y0 ({K - 1} terms x {kappa} rings, a base): bit-exact "
+        f"with the twin; {ms:.4f} ms (CUDA graph of 20)")
+    rec["max_abs_err"] = worst
+    del parts
+    torch.cuda.empty_cache()
+    return [rec]
+
+
 def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix):
     """lin_recon_round (zkvm/comb.py, csrc/comb.cu) against its twin on the
     card, bit for bit, at the main path's reconstruction rounds: the
@@ -1775,6 +1874,7 @@ def fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix):
                              nbytes, pipes(ops, mix))
         w //= 2
     log(f"fold_c_round: every round width {m} ... 2 bit-exact with the twin")
+    worst = max(worst, fold_c_two_streams(torch, np, gl, comb, m, rnd))
     for shape in ((24, 1 << 14), (24, 2), (3, 24, 1 << 17)):
         x = rnd(*shape)
         x[..., 0] = gl.P_I64 - 1
@@ -1802,6 +1902,51 @@ def fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix):
     rec["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return [rec]
+
+
+def fold_c_two_streams(torch, np, gl, comb, m, rnd):
+    """Two fold_c_round launches in flight at once on two streams (round 0
+    at m on the head's strided rows, a folded round at m / 2), eight times
+    over, each bit-equal to its twin: no state is shared between launches
+    (ROADMAP C.h10).  Both streams wait for a gate (a 1 ms spin on a
+    third stream, so that the host has queued both launches when it
+    opens); the second stream spins some 30 us more and has the higher
+    priority, so its blocks are handed out while the first launch runs,
+    before the rest of the first launch's.  The roles swap every time.
+    Returns the largest error (0)."""
+    cases = []
+    for w, fold in ((m, False), (m // 2, True)):
+        head = rnd(5, 24, w)
+        c2r = rnd(2, 24, 2 * w) if fold else head[1:4:2]
+        args = (c2r, head[0::2], rnd(3) if fold else None)
+        cases.append((args, comb.fold_c_round_twin(*args)))
+    streams = (torch.cuda.Stream(priority=0),
+               torch.cuda.Stream(priority=-1))
+    gate = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for rep in range(8):
+        order = cases if rep % 2 == 0 else cases[::-1]
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(2_000_000)
+        opened = torch.cuda.Event()
+        opened.record(gate)
+        outs = []
+        for k, (stream, (args, _)) in enumerate(zip(streams, order)):
+            with torch.cuda.stream(stream):
+                stream.wait_event(opened)
+                if k:
+                    torch.cuda._sleep(60_000)
+                sums = torch.empty((4, 24), dtype=gl.DTYPE, device="cuda")
+                outs.append(comb.fold_c_round(*args, sums) + (sums,))
+        torch.cuda.synchronize()
+        for (args, want), got in zip(order, outs):
+            err = u64_err(gl, np, got, want)
+            if err:
+                fail(f"fold_c_round on two streams, width "
+                     f"{args[1].shape[-1]}, repeat {rep}: max_abs_err={err}")
+    log("fold_c_round: two launches in flight on two streams of low and "
+        "high priority, 8 times, each bit-exact with its twin")
+    return 0
 
 
 def sumcheck_launches(prover):

@@ -12,7 +12,7 @@
 // and the XLA half of the fold round, the c terms and the eq pair sums
 // around the Pallas tail comb (accel_rounds.py:403 _make_round_pallas),
 // with the lin rounds' eq pair sums and the fold sum-check's end:
-//   fold_c_kernel, fold_c_end_kernel
+//   fold_c_kernel, pair_sum_kernel, fold_c_end_kernel
 // The wrappers and the plain-torch twins are in zkvm/comb.py, which states
 // what each kernel computes.
 //
@@ -34,14 +34,17 @@
 // Cross-block sums: the TPU grid runs in order and carries the sums across
 // grid steps.  Here each block reduces its threads (warp shuffles, then
 // shared memory) and writes partial sums (blocks, npts, 24); a second kernel
-// adds the partials.  Field addition is associative mod p, so the order of
-// either pass cannot change a bit of the result.
+// adds the partials (fold_c_kernel adds them inside a thread-block cluster
+// instead).  Field addition is associative mod p, so the order of either
+// pass cannot change a bit of the result.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 using namespace lt;
+namespace cg = cooperative_groups;
 
 #define BLOCK 128
 #define WARPS (BLOCK / 32)
@@ -366,123 +369,324 @@ __global__ void __launch_bounds__(BLOCK)
   store3(o, out_w, x, v);
 }
 
-// One fold round's c terms and eq pair sums (SUMS), or the pair sums
-// alone.  The eq rows eq (n_eq, 24, w), each row contiguous at row stride
-// eq_rs, are pair-summed into Tn (n_eq, 24, h), h = w / 2:
+// One fold round's c terms and eq pair sums.  The eq rows eq (3, 24, w),
+// each row contiguous at row stride eq_rs, are pair-summed into Tn (3, 24,
+// h), h = w / 2:
 //     Tn[i][x] = eq[i][x] + eq[i][h + x].
-// With SUMS (n_eq = 3) the two c rows are read as they are (c_in (2, 24,
-// w), row stride c_rs) or, with FOLD, folded at r first (c_in (2, 24, 2w)
-// -> c_out (2, 24, w), c[x] = c_in[x] + r (c_in[w + x] - c_in[x])), and
+// The two c rows are read as they are (c_in (2, 24, w), row stride c_rs)
+// or, with FOLD, folded at r first (c_in (2, 24, 2w) -> c_out (2, 24, w),
+// c[x] = c_in[x] + r (c_in[w + x] - c_in[x])), and
 //     sums[j]     = sum_{x < h} Tn[j][x] * c[j][x]        (j = 0, 1)
 //     sums[2 + j] = sum_{x < h} Tn[j][x] * c[j][h + x]
 // slot-wise, (4, 24): the rows [c1 at 0, c2 at 0, c1 at 1, c2 at 1] of the
 // round's sums, where round_tail reads them.  The strided rows let the
 // first round read the fold head's interleaved rows [eq, c, eq, c, eq]
 // where they lie.
+//
 // What bounds it: the bytes (round 0 at m = 2^17 reads 125 MB and writes
-// 38 MB).  Thread (x, slot) keeps its four Fq3 sums unreduced (U192,
-// fq3_mac) over the columns it strides through; each block adds its
-// threads' reduced sums (shuffles, then shared memory) into its partial,
-// and the last block to finish (an integer ticket, not a field value,
-// taken with atomicAdd after a fence) adds the partials of every block
-// into sums and resets the ticket: one launch a round, no atomics on
-// field values.  The grid stops at FC_MAX_BX blocks a slot, so that last
-// block adds at most that many partials a value.  The thread's 12
-// unreduced sums (60 registers) and its loads in flight take 185
-// registers, so two blocks of 128 fit an SM; in a trial on the H100,
-// registers capped for 3 or 4 blocks an SM (which spills), or 128 or 256
-// blocks a slot, each ran round 0 slower.
-#define FC_MAX_BX 64
-#define FC_VALS 12  // four Fq3 sums a thread
+// 38 MB).  The first design (a thread a column of a slot, its four Fq3
+// sums unreduced, the loads straight into registers, the last block to
+// take a per-device ticket adding every block's partials) took 185
+// registers, so two blocks of 128 fitted an SM, and a thread's loads of
+// the next columns waited for the products of this one: 45 % of the bound;
+// and two launches in flight on one card shared the ticket.  This one:
+// - Work: one block-row (blockIdx.y = 2 slot + j) a slot and c row j, so a
+//   thread keeps two Fq3 sums (six U192), not four.  Row j's block-row
+//   pair-sums eq row j; eq row 2, which has no products, goes to the
+//   block-row of j = 0 on a block's even tiles and of j = 1 on its odd
+//   ones, so every block reads the same bytes.
+// - Loads: every row slice a tile needs goes into shared memory through
+//   the TMA unit (cp.async.bulk, one thread issues a tile's 12 to 24
+//   slices of 2 KB, completing on the stage's mbarrier), FC_STAGES tiles in
+//   a ring: the next FC_STAGES - 1 tiles are in flight while the block
+//   works on this one, at no cost in registers, and a barrier a tile frees
+//   the stage the next copies refill.  Where a slice is not 16-byte
+//   aligned (odd row strides, w / 2 odd) each thread copies its own column
+//   by cp.async instead, 8 bytes a row, and waits on its own groups.
+// - The sums across blocks: the FC_CLUSTER blocks of a block-row form one
+//   thread-block cluster; each adds its threads' reduced sums (shuffles,
+//   then shared memory), and after a cluster barrier the cluster's first
+//   block reads the others' through distributed shared memory and writes
+//   the six values.  No state outlives a launch and none is shared between
+//   launches: two launches in flight (two streams, a replayed graph) cannot
+//   meet.  One launch a round.
+// - The grid: 16 block-rows x FC_CLUSTER blocks, one an SM.  The card
+//   places a cluster on the SMs of one GPC; on the H100 at most 15
+//   clusters of 8 (or of 7) find one free SM a block, so 16 clusters of 8
+//   put two blocks on eight SMs, and the kernel waits for those (0.073
+//   ms at round 0, against 0.064 with clusters of 6).  Clusters of 6 fit
+//   17 times: 96 blocks on 96 SMs.  More stages (4) or blocks of 512
+//   threads ran no faster, cp.async in place of the TMA 15 % slower
+//   (scripts/fold_c_trials.py builds and times each of these).
+#define FC_CLUSTER 6
+#define FC_TW 256  // threads a block = columns a tile
+#define FC_STAGES 3
 
-template <bool SUMS, bool FOLD>
-__global__ void __launch_bounds__(BLOCK)
+__device__ __forceinline__ unsigned smem_addr(const void *p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async8(u64 *dst, const u64 *src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long *bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long *bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long *bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// A bulk copy (the TMA unit), global -> this block's shared memory,
+// completing on bar: 16-byte aligned addresses, a multiple of 16 bytes.
+__device__ __forceinline__ void bulk_copy(u64 *dst, const u64 *src,
+                                          unsigned bytes,
+                                          unsigned long long *bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The rows of one stage, FC_TW words each: eq row j at x and h + x (comps
+// 0-2, then 3-5), eq row 2 likewise, then c row j at x and h + x or,
+// folded, at x, w + x, h + x, w + h + x.
+enum { FC_E = 0, FC_Q = 6, FC_C = 12 };
+
+template <bool FOLD>
+__host__ __device__ constexpr int fc_rows() {
+  return FC_C + (FOLD ? 12 : 6);
+}
+
+template <bool FOLD>
+__host__ __device__ constexpr int fc_smem_bytes() {
+  return FC_STAGES * fc_rows<FOLD>() * FC_TW * 8;
+}
+
+template <bool FOLD, bool BULK>
+__global__ void __cluster_dims__(FC_CLUSTER, 1, 1) __launch_bounds__(FC_TW)
     fold_c_kernel(const u64 *__restrict__ c_in, long long c_rs,
-                  const u64 *__restrict__ eq, long long eq_rs, int n_eq,
+                  const u64 *__restrict__ eq, long long eq_rs,
                   const u64 *__restrict__ r3, u64 *__restrict__ c_out,
-                  u64 *__restrict__ tn, u64 *__restrict__ partial,
-                  unsigned *__restrict__ ticket, u64 *__restrict__ sums,
-                  long long w) {
+                  u64 *__restrict__ tn, u64 *__restrict__ sums, long long w) {
+  constexpr int NR = fc_rows<FOLD>();
+  extern __shared__ __align__(128) u64 fc_ring[];  // [FC_STAGES][NR][FC_TW]
+  __shared__ unsigned long long full[FC_STAGES];   // BULK: a stage's copies
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int slot = blockIdx.y >> 1, j = blockIdx.y & 1;
+  const int tid = threadIdx.x;
   const long long h = w >> 1;
-  const int slot = blockIdx.y;
-  U192 acc[4][3];
+  const long long W = FOLD ? 2 * w : w;
+  const long long ntiles = (h + FC_TW - 1) / FC_TW;
+  const u64 *ej = eq + j * eq_rs + 3LL * slot * w;
+  const u64 *e2 = eq + 2 * eq_rs + 3LL * slot * w;
+  const u64 *cj = c_in + j * c_rs + 3LL * slot * W;
+  if (BULK) {
+    if (tid == 0) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) zero192(acc[q]);
-  const Fq3 r = FOLD ? Fq3{r3[0], r3[1], r3[2]} : fq3_zero();
-  for (long long x = (long long)blockIdx.x * BLOCK + threadIdx.x; x < h;
-       x += (long long)gridDim.x * BLOCK) {
-    Fq3 T[3];
-#pragma unroll 3
-    for (int i = 0; i < (SUMS ? 3 : n_eq); ++i) {
-      const u64 *e = eq + i * eq_rs + 3LL * slot * w;
-      T[SUMS ? i : 0] = fq3_add(load3(e, w, x), load3(e, w, h + x));
-      store3(tn + (i * 24LL + 3 * slot) * h, h, x, T[SUMS ? i : 0]);
+      for (int s = 0; s < FC_STAGES; ++s) mbar_init(&full[s]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    if (SUMS) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        Fq3 v0, v1;
-        if (FOLD) {
-          const long long W = 2 * w;
-          const u64 *c = c_in + j * c_rs + 3LL * slot * W;
-          const Fq3 a = load3(c, W, x), b = load3(c, W, w + x);
-          const Fq3 a1 = load3(c, W, h + x), b1 = load3(c, W, w + h + x);
-          v0 = fq3_add(a, fq3_mul(r, fq3_sub(b, a)));
-          v1 = fq3_add(a1, fq3_mul(r, fq3_sub(b1, a1)));
-          u64 *co = c_out + (j * 24LL + 3 * slot) * w;
-          store3(co, w, x, v0);
-          store3(co, w, h + x, v1);
-        } else {
-          const u64 *c = c_in + j * c_rs + 3LL * slot * w;
-          v0 = load3(c, w, x);
-          v1 = load3(c, w, h + x);
-        }
-        fq3_mac(acc[j], T[j], v0);
-        fq3_mac(acc[2 + j], T[j], v1);
-      }
-    }
+    __syncthreads();
   }
-  if (!SUMS) return;
-  // the block's sums of this slot -> partial[(slot * gridDim.x + bx) * 12]
-  __shared__ u64 red[WARPS][FC_VALS];
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  // eq row 2 goes with this block-row on every other tile of the block
+  auto q_tile = [&](long long t) { return ((t / FC_CLUSTER) & 1) == j; };
+
+  // the copies of tile t into stage s: BULK one thread issues each row's
+  // slice, else each thread copies its own column of every row
+  auto issue = [&](long long t, int s) {
+    if (t >= ntiles) return;
+    const long long x0 = t * FC_TW;
+    if (BULK ? tid != 0 : x0 + tid >= h) return;
+    const bool q = q_tile(t);
+    const unsigned bytes =
+        (unsigned)(8 * (h - x0 < FC_TW ? h - x0 : (long long)FC_TW));
+    u64 *sb = fc_ring + (long long)s * NR * FC_TW;
+    if (BULK) mbar_expect(&full[s], (NR - (q ? 0 : 6)) * bytes);
+    auto copy = [&](int row, const u64 *src) {
+      if (BULK)
+        bulk_copy(sb + row * FC_TW, src + x0, bytes, &full[s]);
+      else
+        cp_async8(sb + row * FC_TW + tid, src + x0 + tid);
+    };
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      u64 v = reduce192(acc[q][k]);
+      copy(FC_E + k, ej + k * w);
+      copy(FC_E + 3 + k, ej + k * w + h);
+      if (q) {
+        copy(FC_Q + k, e2 + k * w);
+        copy(FC_Q + 3 + k, e2 + k * w + h);
+      }
+      const u64 *c = cj + k * W;
+      copy(FC_C + k, c);
+      if (FOLD) {
+        copy(FC_C + 3 + k, c + w);
+        copy(FC_C + 6 + k, c + h);
+        copy(FC_C + 9 + k, c + w + h);
+      } else {
+        copy(FC_C + 3 + k, c + h);
+      }
+    }
+  };
+
+  U192 acc[2][3];
+  zero192(acc[0]);
+  zero192(acc[1]);
+  const Fq3 r = FOLD ? Fq3{r3[0], r3[1], r3[2]} : fq3_zero();
+  long long t_next = rank;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = gl_add(v, __shfl_down_sync(0xffffffffu, v, off));
-      if (lane == 0) red[warp][3 * q + k] = v;
+  for (int s = 0; s < FC_STAGES - 1; ++s) {
+    issue(t_next, s);
+    if (!BULK) cp_async_commit();
+    t_next += FC_CLUSTER;
+  }
+  int s_use = 0, s_next = FC_STAGES - 1;
+  unsigned parity = 0;
+  for (long long t = rank; t < ntiles; t += FC_CLUSTER) {
+    // BULK: every thread is done with stage s_next (its last tile) before
+    // the copies refill it
+    if (BULK) __syncthreads();
+    issue(t_next, s_next);
+    t_next += FC_CLUSTER;
+    s_next = s_next + 1 == FC_STAGES ? 0 : s_next + 1;
+    if (BULK) {
+      mbar_wait(&full[s_use], parity);
+    } else {
+      cp_async_commit();
+      cp_async_wait<FC_STAGES - 1>();
+    }
+    const long long x = t * FC_TW + tid;
+    if (x < h) {
+      const u64 *sb = fc_ring + (long long)s_use * NR * FC_TW + tid;
+      auto at = [&](int row) { return sb[row * FC_TW]; };
+      const Fq3 T{gl_add(at(FC_E), at(FC_E + 3)),
+                  gl_add(at(FC_E + 1), at(FC_E + 4)),
+                  gl_add(at(FC_E + 2), at(FC_E + 5))};
+      store3(tn + (j * 24LL + 3 * slot) * h, h, x, T);
+      if (q_tile(t))
+        store3(tn + (2 * 24LL + 3 * slot) * h, h, x,
+               Fq3{gl_add(at(FC_Q), at(FC_Q + 3)),
+                   gl_add(at(FC_Q + 1), at(FC_Q + 4)),
+                   gl_add(at(FC_Q + 2), at(FC_Q + 5))});
+      Fq3 v0, v1;
+      if (FOLD) {
+        const Fq3 a{at(FC_C), at(FC_C + 1), at(FC_C + 2)};
+        const Fq3 b{at(FC_C + 3), at(FC_C + 4), at(FC_C + 5)};
+        const Fq3 a1{at(FC_C + 6), at(FC_C + 7), at(FC_C + 8)};
+        const Fq3 b1{at(FC_C + 9), at(FC_C + 10), at(FC_C + 11)};
+        v0 = fq3_add(a, fq3_mul(r, fq3_sub(b, a)));
+        v1 = fq3_add(a1, fq3_mul(r, fq3_sub(b1, a1)));
+        u64 *co = c_out + (j * 24LL + 3 * slot) * w;
+        store3(co, w, x, v0);
+        store3(co, w, h + x, v1);
+      } else {
+        v0 = Fq3{at(FC_C), at(FC_C + 1), at(FC_C + 2)};
+        v1 = Fq3{at(FC_C + 3), at(FC_C + 4), at(FC_C + 5)};
+      }
+      fq3_mac(acc[0], T, v0);
+      fq3_mac(acc[1], T, v1);
+    }
+    if (++s_use == FC_STAGES) {
+      s_use = 0;
+      parity ^= 1u;
     }
   }
-  __syncthreads();
-  if (threadIdx.x < FC_VALS) {
-    u64 v = 0ULL;
+  if (!BULK) cp_async_wait<0>();
+
+  // the block's six sums, then the cluster's in its first block
+  __shared__ u64 red[FC_TW / 32][6];
+  __shared__ u64 blk[6];
+  const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-    for (int wp = 0; wp < WARPS; ++wp) v = gl_add(v, red[wp][threadIdx.x]);
-    partial[((long long)slot * gridDim.x + blockIdx.x) * FC_VALS +
-            threadIdx.x] = v;
-    __threadfence();
+  for (int v = 0; v < 6; ++v) {
+    u64 a = reduce192(acc[v / 3][v % 3]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      a = gl_add(a, __shfl_down_sync(0xffffffffu, a, off));
+    if (lane == 0) red[warp][v] = a;
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (threadIdx.x < 8 * FC_VALS) {
-    const int s = threadIdx.x / FC_VALS, k = threadIdx.x % FC_VALS;
-    const u64 *p = partial + (long long)s * gridDim.x * FC_VALS + k;
-    u64 v = 0ULL;
-#pragma unroll 8
-    for (unsigned b = 0; b < gridDim.x; ++b)
-      v = gl_add(v, __ldcg(p + (long long)b * FC_VALS));
-    sums[(k / 3) * 24 + 3 * s + k % 3] = v;
+  if (tid < 6) {
+    u64 a = 0ULL;
+#pragma unroll
+    for (int wp = 0; wp < FC_TW / 32; ++wp) a = gl_add(a, red[wp][tid]);
+    blk[tid] = a;
   }
-  if (threadIdx.x == 0) *ticket = 0u;
+  cluster.sync();
+  if (rank == 0 && tid < 6) {
+    u64 a = 0ULL;
+#pragma unroll
+    for (int b = 0; b < FC_CLUSTER; ++b)
+      a = gl_add(a, *cluster.map_shared_rank(&blk[tid], b));
+    sums[((tid / 3) * 2 + j) * 24 + 3 * slot + tid % 3] = a;
+  }
+  cluster.sync();  // every block's shared memory lives until it was read
+}
+
+// fold_c_kernel's shared memory above 48 KB, allowed on the current device
+// before every launch (the attribute belongs to a device, and one process
+// may launch on several), then one launch.
+template <bool FOLD, bool BULK>
+static cudaError_t fold_c_launch(const u64 *c_in, long long c_rs,
+                                 const u64 *eq, long long eq_rs,
+                                 const u64 *r3, u64 *c_out, u64 *tn,
+                                 u64 *sums, long long w,
+                                 cudaStream_t stream) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      fold_c_kernel<FOLD, BULK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fc_smem_bytes<FOLD>());
+  if (set != cudaSuccess) return set;
+  fold_c_kernel<FOLD, BULK>
+      <<<dim3(FC_CLUSTER, 16), FC_TW, fc_smem_bytes<FOLD>(), stream>>>(
+          c_in, c_rs, eq, eq_rs, r3, c_out, tn, sums, w);
+  return cudaGetLastError();
+}
+
+// The lin rounds' eq pair sums alone: eq (n_eq, 24, w), each row contiguous
+// at row stride eq_rs -> tn (n_eq, 24, h), one thread an output.
+__global__ void __launch_bounds__(BLOCK)
+    pair_sum_kernel(const u64 *__restrict__ eq, long long eq_rs, int n_eq,
+                    u64 *__restrict__ tn, long long w) {
+  const long long h = w >> 1;
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (i >= n_eq * 24LL * h) return;
+  const long long x = i % h, rk = i / h;
+  const u64 *e = eq + (rk / 24) * eq_rs + (rk % 24) * w;
+  tn[i] = gl_add(e[x], e[h + x]);
 }
 
 // The fold sum-check's end, one thread per (row, slot, x < w) of out (5 +
@@ -678,37 +882,36 @@ int lt_lin_recon_fold(const u64 *X, u64 *out, int rows, long long w,
   return (int)cudaGetLastError();
 }
 
-static dim3 fold_c_grid(long long h) {
-  const long long nbx = (h + BLOCK - 1) / BLOCK;
-  return dim3((unsigned)(nbx < FC_MAX_BX ? nbx : FC_MAX_BX), 8);
-}
-
 // One fold round's c terms and eq pair sums (fold_c_kernel): r3 null reads
-// c_in (2, 24, w), else folds c_in (2, 24, 2w) at r3 into c_out.  partial
-// holds 8 x grid.x x 12 words; ticket is 0 and is left 0.
+// c_in (2, 24, w), else folds c_in (2, 24, 2w) at r3 into c_out.  The rows
+// go through the TMA unit where every row slice is 16-byte aligned (row
+// strides and w / 2 even, base pointers 16-byte aligned), else through
+// cp.async, 8 bytes a thread.
 int lt_fold_c_round(const u64 *c_in, long long c_rs, const u64 *eq,
                     long long eq_rs, const u64 *r3, u64 *c_out, u64 *tn,
-                    u64 *partial, unsigned *ticket, u64 *sums, long long w,
-                    cudaStream_t stream) {
+                    u64 *sums, long long w, cudaStream_t stream) {
   if (w < 2 || w % 2) return (int)cudaErrorInvalidValue;
-  const dim3 grid = fold_c_grid(w / 2);
-  if (r3)
-    fold_c_kernel<true, true><<<grid, BLOCK, 0, stream>>>(
-        c_in, c_rs, eq, eq_rs, 3, r3, c_out, tn, partial, ticket, sums, w);
-  else
-    fold_c_kernel<true, false><<<grid, BLOCK, 0, stream>>>(
-        c_in, c_rs, eq, eq_rs, 3, r3, c_out, tn, partial, ticket, sums, w);
-  return (int)cudaGetLastError();
+  const bool bulk =
+      ((unsigned long long)c_in | (unsigned long long)eq) % 16 == 0 &&
+      c_rs % 2 == 0 && eq_rs % 2 == 0 && w % 4 == 0;
+  // two instantiations, not a run-time flag: with the flag, both paths in
+  // one kernel took more registers and ran round 0 slower (PERF.md, PR 11)
+  cudaError_t (*launch)(const u64 *, long long, const u64 *, long long,
+                        const u64 *, u64 *, u64 *, u64 *, long long,
+                        cudaStream_t) =
+      r3 ? (bulk ? fold_c_launch<true, true> : fold_c_launch<true, false>)
+         : (bulk ? fold_c_launch<false, true> : fold_c_launch<false, false>);
+  return (int)launch(c_in, c_rs, eq, eq_rs, r3, c_out, tn, sums, w, stream);
 }
 
-// The pair sums alone (fold_c_kernel without c rows): eq (n_eq, 24, w),
-// row stride eq_rs -> tn (n_eq, 24, w / 2).
+// The pair sums alone (pair_sum_kernel): eq (n_eq, 24, w), row stride
+// eq_rs -> tn (n_eq, 24, w / 2).
 int lt_pair_sum(const u64 *eq, long long eq_rs, int n_eq, u64 *tn,
                 long long w, cudaStream_t stream) {
   if (w < 2 || w % 2 || n_eq < 1) return (int)cudaErrorInvalidValue;
-  fold_c_kernel<false, false><<<fold_c_grid(w / 2), BLOCK, 0, stream>>>(
-      nullptr, 0, eq, eq_rs, n_eq, nullptr, nullptr, tn, nullptr, nullptr,
-      nullptr, w);
+  const long long n = n_eq * 24LL * (w / 2);
+  pair_sum_kernel<<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0, stream>>>(
+      eq, eq_rs, n_eq, tn, w);
   return (int)cudaGetLastError();
 }
 

@@ -125,20 +125,25 @@ __device__ __forceinline__ Fq3 fq3_square(const Fq3 &a) {
 //   d0 += c0 x0 + (w c1) x2 + (w c2) x1
 //   d1 += c0 x1 + c1 x0     + (w c2) x2
 //   d2 += c0 x2 + c1 x1     + c2 x0
-// nine 128-bit products into the three 192-bit sums, w c1 and w c2 formed
-// here (two reductions).
-__device__ __forceinline__ void fq3_mac(U192 (&d)[3], const Fq3 &c,
-                                        const Fq3 &x) {
-  const u64 wc1 = gl_mul_w(c.c1), wc2 = gl_mul_w(c.c2);
-  mac192(d[0], c.c0, x.c0);
+// nine 128-bit products into the three 192-bit sums, given w c1 and w c2.
+__device__ __forceinline__ void fq3_mac_w(U192 (&d)[3], u64 c0, u64 c1,
+                                          u64 c2, u64 wc1, u64 wc2,
+                                          const Fq3 &x) {
+  mac192(d[0], c0, x.c0);
   mac192(d[0], wc1, x.c2);
   mac192(d[0], wc2, x.c1);
-  mac192(d[1], c.c0, x.c1);
-  mac192(d[1], c.c1, x.c0);
+  mac192(d[1], c0, x.c1);
+  mac192(d[1], c1, x.c0);
   mac192(d[1], wc2, x.c2);
-  mac192(d[2], c.c0, x.c2);
-  mac192(d[2], c.c1, x.c1);
-  mac192(d[2], c.c2, x.c0);
+  mac192(d[2], c0, x.c2);
+  mac192(d[2], c1, x.c1);
+  mac192(d[2], c2, x.c0);
+}
+
+// The same, w c1 and w c2 formed here (two reductions).
+__device__ __forceinline__ void fq3_mac(U192 (&d)[3], const Fq3 &c,
+                                        const Fq3 &x) {
+  fq3_mac_w(d, c.c0, c.c1, c.c2, gl_mul_w(c.c1), gl_mul_w(c.c2), x);
 }
 
 __device__ __forceinline__ void zero192(U192 (&d)[3]) {

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
-           "tables.cu", "ring.cu", "coo.cu")
+           "tables.cu", "ring.cu", "coo.cu", "ringmac.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -113,9 +113,11 @@ SIGNATURES = {
     "lt_eq_table": [_VP] * 2 + [_I32] * 2 + [_VP],
     "lt_head_alpha": [_VP] * 4 + [_I32, _I64, _VP],
     "lt_crt": [_VP] * 2 + [_I64, _I32, _VP, _VP],
+    "lt_ring_mac": [_VP] * 2 + [_I32, _I64, _VP, _I32] + [_VP] * 2
+    + [_I64, _I32, _VP],
     "lt_coo_matvec": [_VP] * 5 + [_I32] * 2 + [_I64] * 2 + [_VP, _I64, _VP]
     + [_I32] * 4 + [_VP] * 2,
-    "lt_fold_c_round": [_VP, _I64] * 2 + [_VP] * 6 + [_I64, _VP],
+    "lt_fold_c_round": [_VP, _I64] * 2 + [_VP] * 4 + [_I64, _VP],
     "lt_pair_sum": [_VP, _I64, _I32, _VP, _I64, _VP],
     "lt_fold_c_end": [_VP, _I64] * 2 + [_VP, _I32] + [_VP] * 3 + [_I64, _VP],
 }

@@ -13,6 +13,15 @@ butterfly network in ``csrc/ring.cu`` (counted in ``crt.launches`` and
 and ``:98`` ``icrt``); on the CPU the plain-torch twins ``crt_twin`` and
 ``icrt_twin`` apply the maps as a dense matvec of field multiply-adds.
 Any other device raises.  There is no fallback.
+
+``ring_mac`` and ``ring_mul_each`` are the ring multiply-accumulate of
+``csrc/ringmac.cu`` (counterpart of the XLA functions
+``latticeum_tpu/zkvm/accel_nifs.py:796`` ``f0_fn`` and the row-constant
+commits and y0 of ``:499`` ``batch_fn``): slot-wise products of NTT-form
+rings, summed over the terms or not, one launch each (counted in
+``ring_mac.launches`` and ``ring_mul_each.launches``), with the twins
+``ring_mac_twin`` and ``ring_mul_each_twin`` (``ntt_mul`` and ``gl.add``)
+on the CPU.
 """
 
 from __future__ import annotations
@@ -158,7 +167,98 @@ def rot(c):
     return out
 
 
-KERNELS = (crt, icrt)
+def ring_mac_twin(parts, c, base=None):
+    """Plain torch of ring_mac: one ntt_mul and one add a term."""
+    acc = None
+    i = 0
+    for part in parts:
+        for x in part:
+            term = ntt_mul(x, c[i][None])
+            acc = term if acc is None else gl.add(acc, term)
+            i += 1
+    if acc is None:
+        acc = torch.zeros(parts[0].shape[1:], dtype=gl.DTYPE,
+                          device=c.device)
+    return acc if base is None else gl.sub(base, acc)
+
+
+def ring_mul_each_twin(x, c):
+    """Plain torch of ring_mul_each."""
+    return ntt_mul(x[None], c[:, None, :])
+
+
+def _terms(name, t, rows=None):
+    if t.dtype != gl.DTYPE:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected int64")
+    if t.dim() != 3 or t.shape[-1] != D or (rows is not None and
+                                            t.shape[1] != rows):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected (n, "
+                         f"{'rows' if rows is None else rows}, {D})")
+
+
+def _ring_consts(c, n):
+    if c.dtype != gl.DTYPE:
+        raise TypeError(f"c: dtype {c.dtype}, expected int64")
+    if tuple(c.shape) != (n, D):
+        raise ValueError(f"c: shape {tuple(c.shape)}, expected ({n}, {D})")
+
+
+def ring_mac(parts, c, base=None):
+    """out (rows, 24) = sum_i c[i] * x_i, or base - that sum: slot-wise
+    Fq3 products of NTT-form rings.  The terms x_i (rows, 24) are the rows
+    of one or two parts (n_p, rows, 24) in order, read where they lie;
+    c (n, 24) holds one ring a term, n = sum n_p; base (rows, 24) or None.
+    One launch (sums unreduced, one reduction an output)."""
+    parts = tuple(parts)
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"ring_mac takes one or two parts, not "
+                         f"{len(parts)}")
+    for k, x in enumerate(parts):
+        _terms(f"parts[{k}]", x, parts[0].shape[1] if k else None)
+    rows = parts[0].shape[1]
+    n = sum(x.shape[0] for x in parts)
+    _ring_consts(c, n)
+    if base is not None:
+        if base.dtype != gl.DTYPE or tuple(base.shape) != (rows, D):
+            raise ValueError(f"base: {base.dtype} {tuple(base.shape)}, "
+                             f"expected int64 ({rows}, {D})")
+    if _route(parts + (c,) + (() if base is None else (base,))) == "cpu":
+        return ring_mac_twin(parts, c, base)
+    parts = tuple(x.contiguous() for x in parts)
+    c = c.contiguous()
+    base = None if base is None else base.contiguous()
+    out = torch.empty((rows, D), dtype=gl.DTYPE, device=c.device)
+    if rows:
+        _launch("lt_ring_mac", _ptr(parts[0]),
+                _ptr(parts[1]) if len(parts) == 2 else None,
+                parts[0].shape[0], rows * D, _ptr(c), n,
+                None if base is None else _ptr(base), _ptr(out), rows, 1,
+                _stream())
+        ring_mac.launches += 1
+    return out
+
+
+def ring_mul_each(x, c):
+    """out (n, rows, 24), out[i] = c[i] * x: the slot-wise products of the
+    rings x (rows, 24) with each ring of c (n, 24), one launch of
+    ring_mac's kernel without the sum."""
+    if x.dtype != gl.DTYPE or x.dim() != 2 or x.shape[-1] != D:
+        raise ValueError(f"x: {x.dtype} {tuple(x.shape)}, expected int64 "
+                         f"(rows, {D})")
+    _ring_consts(c, c.shape[0] if c.dim() else -1)
+    if _route((x, c)) == "cpu":
+        return ring_mul_each_twin(x, c)
+    x, c = x.contiguous(), c.contiguous()
+    out = torch.empty((c.shape[0],) + tuple(x.shape), dtype=gl.DTYPE,
+                      device=x.device)
+    if out.numel():
+        _launch("lt_ring_mac", _ptr(x), None, c.shape[0], 0, _ptr(c),
+                c.shape[0], None, _ptr(out), x.shape[0], 0, _stream())
+        ring_mul_each.launches += 1
+    return out
+
+
+KERNELS = (crt, icrt, ring_mac, ring_mul_each)
 
 
 def reset_launches():

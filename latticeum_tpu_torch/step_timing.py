@@ -47,6 +47,7 @@ terms (``PER_LABEL``: the kernels ``comb.fold_c_round``, ``pair_sum``,
 ``fold_c_end``, or an earlier tree's plain torch ``_pair_sum``,
 ``_contract``, ``comb.fold_t``), the NIFS phases (``lin_prove``,
 ``dec_prove``, ``fold_prove``) and the sum-check runners, and, per phase,
+the ring multiply-accumulate (``rq.ring_mac``, ``rq.ring_mul_each``) and
 the owners of the other plain-torch launches (``rq.ntt_mul``,
 ``_commit_many``, ``_fhat_t``, ``witness_from_f``, the gadget
 decompositions, the claims), each traced as a
@@ -204,7 +205,8 @@ LABELS = {"lin_prove": "lin_prove", "dec_prove": "dec_prove",
 # comb.fold_t), which lin and fold rounds share; and the owners of the
 # other plain-torch launches of a fold.
 PER_LABEL = ("fold_c_round", "pair_sum", "fold_c_end", "_pair_sum",
-             "_contract", "fold_t", "ntt_mul", "_commit_many", "_fhat_t",
+             "_contract", "fold_t", "ntt_mul", "ring_mac", "ring_mul_each",
+             "_commit_many", "_fhat_t",
              "witness_from_f", "gadget_recompose",
              "decompose_vec_into_k_vecs", "eval_fhat", "eval_claims")
 
@@ -228,6 +230,7 @@ def traced_ranges(torch):
                    "_build_head", "lin_prove", "dec_prove", "fold_prove",
                    "_commit_many", "_fhat_t", "witness_from_f")),
                (rq, "crt"), (rq, "icrt"), (rq, "ntt_mul"),
+               (rq, "ring_mac"), (rq, "ring_mul_each"),
                *((accel_rounds, n) for n in (
                    "_lin_reconstruct", "run_lin_rounds_factored",
                    "run_fold_rounds_factored", "_pair_sum", "_contract")),

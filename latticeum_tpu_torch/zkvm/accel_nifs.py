@@ -49,6 +49,32 @@ def lin_c_signs(c_rings):
     return tuple(signs)
 
 
+def fq3_powers(x, n):
+    """[x, x^2, ..., x^n] of a host Fq3 element, a running product: one
+    multiply a power (the same values as H.fq3_pow)."""
+    out, pw = [], (1, 0, 0)
+    for _ in range(n):
+        pw = H.fq3_mul(pw, x)
+        out.append(pw)
+    return out
+
+
+def row_constant_commits(rows, fs):
+    """The row-constant Ajtai commitments of the witnesses fs (B, n, 24),
+    (B, kappa, 24): cm_b = rows * sum fs[b], rows (kappa, 24); the sums in
+    torch, the products one launch of rq.ring_mul_each."""
+    return rq.ring_mul_each(rows, gl.sum_axis(fs, -2))
+
+
+def recompose_y0(cm, cms, b_small):
+    """dec's y_0 = cm - sum_{k >= 1} b^k cm_k, cms (K - 1, kappa, 24) the
+    commitments cm_k, cm (kappa, 24): one launch of rq.ring_mac, each b^k
+    as a scalar ring."""
+    bp = gl.from_int([[pow(b_small, k, gl.P), 0, 0] * rq.N_SLOTS
+                      for k in range(1, cms.shape[0] + 1)], cm.device)
+    return rq.ring_mac((cms,), bp, base=cm)
+
+
 class TorchWitness:
     """Witness with device tensors (counterpart of DeviceWitness)."""
 
@@ -142,7 +168,7 @@ class TorchNifs:
         if self.general_ajtai:
             return mxu.contract(self._ajtai_planes,
                                 mxu.digit_split(fs)).transpose(0, 1)
-        return rq.ntt_mul(self.ajtai_rows, gl.sum_axis(fs, -2)[:, None, :])
+        return row_constant_commits(self.ajtai_rows, fs)
 
     def commit(self, f):
         """Ajtai commitment of f (n, 24) -> host rings (kappa x 24 ints)."""
@@ -188,7 +214,7 @@ class TorchNifs:
 
     # -- decomposition --------------------------------------------------------
     def dec_prove(self, cm_i: LCCCS, wit: TorchWitness, transcript, log=None):
-        p, ccs, dev = self.p, self.ccs, self.device
+        p = self.p
         point = [H.ntt_slots(r)[0] for r in cm_i.r]
         ks = dc.decompose_vec_into_k_vecs(wit.f_coeff, p.B_SMALL, p.K)
         f_b = rq.crt(ks)                                      # (K, nf, 24)
@@ -196,10 +222,8 @@ class TorchNifs:
         fhat_b = self._fhat_t(ks)                             # (K, TAU, 24, npad)
         # commits for k >= 1; y_0 = cm - sum_k b^k y_k
         cms = self._commit_many(f_b[1:])                      # (K-1, kappa, 24)
-        bp = gl.from_int([pow(p.B_SMALL, k, gl.P) for k in range(1, p.K)],
-                         dev)
-        y0 = gl.sub(self.e.ints([list(c) for c in cm_i.cm]),
-                    gl.sum_axis(gl.mul(bp[:, None, None], cms), 0))
+        y0 = recompose_y0(self.e.ints([list(c) for c in cm_i.cm]), cms,
+                          p.B_SMALL)
         y_s = gl.to_int_lists(torch.cat([y0[None], cms]))
         x_s = dec.compute_x_s(cm_i.x_w, cm_i.h, p)
         eq_r = self.e.eq_table(point, fhat_b.shape[-1],
@@ -236,16 +260,12 @@ class TorchNifs:
         ``coo_matvec`` (``Engine.mz_challenged``)."""
         ccs, e, dev = self.ccs, self.e, self.device
         K, m, t = self.p.K, ccs.m, ccs.t
-        apows = []
-        for a in alpha_s:
-            pw = (1, 0, 0)
-            for _d in range(TAU):
-                pw = H.fq3_mul(pw, a)
-                apows.append(pw)
-        alpha = gl.upload(gl.from_int(apows), dev)             # (2K*TAU, 3)
+        alpha = gl.upload(gl.from_int(
+            [pw for a in alpha_s for pw in fq3_powers(a, TAU)]),
+            dev)                                               # (2K*TAU, 3)
         zeta = gl.upload(gl.from_int(
-            [[H.fq3_pow(zeta_s[i], j + 1) for j in range(t)]
-             for i in range(2 * K)]), dev)                     # (2K, t, 3)
+            [fq3_powers(zeta_s[i], t) for i in range(2 * K)]),
+            dev)                                               # (2K, t, 3)
         head = torch.empty((5, 24, m), dtype=gl.DTYPE, device=dev)
         for row, pt in zip((0, 2, 4), eq_points):
             e.eq_table(pt, m, t_layout=True, out=head[row])
@@ -260,7 +280,6 @@ class TorchNifs:
         alpha_s, beta_s, zeta_s, mu_s = fold.squeeze_alpha_beta_zeta_mu(
             transcript, ccs.s, K)
         zs = torch.cat([b["z"] for b in batches])              # (2K, n, 24)
-        fs = torch.cat([b["f"] for b in batches])              # (2K, nf, 24)
         tail = torch.cat([b["fhat"] for b in batches]).reshape(
             2 * K * TAU, 24, ccs.m)
         for b in batches:
@@ -282,10 +301,8 @@ class TorchNifs:
             transcript.absorb_slice(et)
         rho_coeff, rho_ntt = fold.get_rhos(transcript, K)
         rh = gl.from_int(rho_ntt, dev)                          # (2K, 24)
-        f0 = None
-        for i in range(2 * K):
-            term = rq.ntt_mul(fs[i], rh[i][None])
-            f0 = term if f0 is None else gl.add(f0, term)
+        # f0 = sum_i rho_i f_i over both batches' f where they lie
+        f0 = rq.ring_mac([b["f"] for b in batches], rh)
         v_0, cm_0, u_0, x_0 = fold.compute_v0_u0_x0_cm0_vec(
             rho_coeff, rho_ntt, theta_s, cm_i_s, eta_s, ccs)
         lcccs = LCCCS(r=[H.ntt_from_fq3(c) for c in r_0], v=v_0, cm=cm_0,

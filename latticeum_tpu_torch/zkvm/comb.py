@@ -44,7 +44,7 @@ minor axis, so a sum-check round pairs column x with column x + half.
   j = 0, 1] over x < h = w/2, the rows of the round's sums after the tail
   comb's.  Returns (c, Tn).  c2r and eqs may be any views whose rows are
   contiguous (the fold head's interleaved rows).  ``pair_sum(eq)`` is the
-  same kernel without c rows (the lin rounds' eq table) and
+  pair sums alone (the lin rounds' eq table) and
   ``fold_c_end(c2r, eqs, t_s, r3, E)`` the sum-check's end: [eq_i E_i,
   c_j folded at r3, interleaved; t_s folded at r3].  All three count
   their launches in ``fold_c_round.launches``.
@@ -485,18 +485,6 @@ def lin_recon_fold(X, r3, out, scale3=None):
     return out
 
 
-FC_MAX_BX = 64       # csrc/comb.cu: column blocks a slot of fold_c_kernel
-_tickets = {}
-
-
-def _ticket(device):
-    """fold_c_kernel's block ticket on `device`: zeroed once, and left zero
-    by every launch."""
-    if device not in _tickets:
-        _tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _tickets[device]
-
-
 def _row_stride(name, x, rows, width):
     """The row stride of x (rows, 24, width), int64, each row contiguous."""
     if x.dtype != torch.int64:
@@ -517,7 +505,8 @@ def _even_width(w):
 def fold_c_round(c2r, eqs, r3, sums):
     """A fold round's c terms and eq pair sums, one launch (replaces the
     XLA half of accel_rounds._make_round_pallas): returns (c, Tn) and
-    writes sums (4, 24)."""
+    writes sums (4, 24).  The launch keeps no state between launches, so
+    launches on several streams may overlap."""
     w = eqs.shape[-1]
     _even_width(w)
     eq_rs = _row_stride("eqs", eqs, 3, w)
@@ -534,19 +523,17 @@ def fold_c_round(c2r, eqs, r3, sums):
     Tn = torch.empty((3, 24, w // 2), dtype=gl.DTYPE, device=dev)
     c = c2r if r3 is None else torch.empty((2, 24, w), dtype=gl.DTYPE,
                                            device=dev)
-    nbx = min(-(-(w // 2) // BLOCK), FC_MAX_BX)
-    partial = torch.empty((8, nbx, 12), dtype=gl.DTYPE, device=dev)
     _launch("lt_fold_c_round", _ptr(c2r), c_rs, _ptr(eqs), eq_rs,
             None if r3 is None else _ptr(r3),
-            None if r3 is None else _ptr(c), _ptr(Tn), _ptr(partial),
-            _ptr(_ticket(dev)), _ptr(sums), w, _stream())
+            None if r3 is None else _ptr(c), _ptr(Tn), _ptr(sums), w,
+            _stream())
     fold_c_round.launches += 1
     return c, Tn
 
 
 def pair_sum(eq):
     """(rows, 24, w) or (24, w), rows contiguous -> the pair sums (rows,
-    24, w/2) or (24, w/2), one launch of fold_c_round's kernel."""
+    24, w/2) or (24, w/2), one launch (counted in fold_c_round's)."""
     w = eq.shape[-1]
     _even_width(w)
     flat = eq if eq.dim() == 3 else eq[None]

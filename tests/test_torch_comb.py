@@ -11,6 +11,7 @@ CUDA kernels against the twins; it needs a card and skips elsewhere."""
 
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -31,12 +32,20 @@ P = gl.P
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _pallas_ab():
+def _script(name):
     spec = importlib.util.spec_from_file_location(
-        "pallas_ab", os.path.join(ROOT, "scripts", "pallas_ab.py"))
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _pallas_ab():
+    return _script("pallas_ab")
+
+
+TRIALS = _script("fold_c_trials")
+COMB_CU = os.path.join(ROOT, "latticeum_tpu_torch", "csrc", "comb.cu")
 
 
 def rnd(rng, *shape):
@@ -612,6 +621,36 @@ def test_fold_c_round_twin_matches_jax(fold, w):
     assert np.array_equal(gl.to_u64(sums), want_sums)
 
 
+@pytest.mark.parametrize("name", list(TRIALS.VARIANTS))
+def test_fold_c_trials_variant_rewrites_comb_cu(name):
+    """scripts/fold_c_trials.py builds each design variant from a copy of
+    csrc/comb.cu: each rewrite changes one line, its constant's (or the
+    line that chooses the TMA path), the others keep the kernel's values,
+    and the cluster probe is appended."""
+    with open(COMB_CU) as f:
+        src = f.read()
+    rewrites = TRIALS.VARIANTS[name]
+    out = TRIALS.variant_source(src, rewrites)
+    assert out.endswith(TRIALS.CLUSTERS_SRC)
+    body = out[:-len(TRIALS.CLUSTERS_SRC)]
+    for const in ("FC_CLUSTER", "FC_TW", "FC_STAGES"):
+        pattern = rf"^#define {const} (\d+)"
+        (kernel,) = re.findall(pattern, src, flags=re.M)
+        assert re.findall(pattern, body, flags=re.M) == [
+            str(rewrites.get(const, kernel))]
+    assert ("const bool bulk = false &&" in body) == ("bulk" in rewrites)
+    old, new = src.splitlines(), body.splitlines()
+    assert len(old) == len(new)
+    assert sum(a != b for a, b in zip(old, new)) == len(rewrites)
+
+
+def test_fold_c_trials_rewrite_must_find_its_line():
+    with open(COMB_CU) as f:
+        src = f.read()
+    with pytest.raises(RuntimeError):
+        TRIALS.variant_source(src, {"FC_NOT_A_CONSTANT": 1})
+
+
 @pytest.mark.parametrize("shape", [(24, 2), (24, 16), (3, 24, 8)])
 def test_pair_sum_matches_jax(shape):
     rng = np.random.default_rng(80 + shape[-1])
@@ -712,3 +751,50 @@ def test_cuda_fold_c_matches_twins():
                            comb.fold_c_end_twin(c2r, eqs, t_s, r3, E))
         calls += 1
     assert comb.fold_c_round.launches == calls
+
+
+@pytest.mark.cuda
+def test_cuda_fold_c_round_on_two_streams():
+    """Two fold_c_round launches in flight at once, on two streams (round
+    0 at w = 2^17 on the head's strided rows and a folded round at 2^16,
+    each a full grid), eight times over, each against its twin: no state
+    is shared between launches (ROADMAP C.h10).  Both streams wait for a
+    gate (a 1 ms spin on a third stream, so that the host has queued both
+    launches when it opens); the second stream spins some 30 us more and
+    has the higher priority, so its blocks are handed out while the first
+    launch runs, before the rest of the first launch's.  The roles swap
+    every time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(97)
+    dev = "cuda"
+    cases = []
+    for w, fold in ((1 << 17, False), (1 << 16, True)):
+        head = tt(rnd(rng, 5, 24, w)).to(dev)
+        c2r = tt(rnd(rng, 2, 24, 2 * w)).to(dev) if fold else head[1:4:2]
+        r3 = tt(rnd(rng, 3)).to(dev) if fold else None
+        args = (c2r, head[0::2], r3)
+        cases.append((args, comb.fold_c_round_twin(*args)))
+    streams = (torch.cuda.Stream(priority=0), torch.cuda.Stream(priority=-1))
+    gate = torch.cuda.Stream()
+    comb.reset_launches()
+    torch.cuda.synchronize()
+    for rep in range(8):
+        order = cases if rep % 2 == 0 else cases[::-1]
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(2_000_000)
+        opened = torch.cuda.Event()
+        opened.record(gate)
+        outs = []
+        for k, (stream, (args, want)) in enumerate(zip(streams, order)):
+            with torch.cuda.stream(stream):
+                stream.wait_event(opened)
+                if k:
+                    torch.cuda._sleep(60_000)
+                sums = torch.empty((4, 24), dtype=torch.int64, device=dev)
+                outs.append((comb.fold_c_round(*args, sums) + (sums,), want))
+        torch.cuda.synchronize()
+        for got, want in outs:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), rep
+    assert comb.fold_c_round.launches == 16
