@@ -33,13 +33,16 @@ Phases (each prints its own lines; any failure exits non-zero):
               the card, exact integer equality, at a small shape and at the
               production round shape, with kernel and twin times; the lin
               kernels also with random ring constants c_i (not +-1) at the
-              production shape, timed; lin_recon_round (csrc/comb.cu)
-              against its twin at the main path's reconstruction rounds
-              (126 rows at 8 columns, then folded to 4 and 2; signs and
-              ring constants) and its fold alone, each timed by a CUDA
-              graph beside its bound and the launch floor; fold_c_round
-              (csrc/comb.cu) against its twin at every fold round width
-              2^17 ... 2 (round 0 on the head's row-strided rows), the
+              production shape, timed; lin_recon_tail (csrc/recon.cu)
+              against its twin at the main path's reconstruction tail
+              (125 Mz rows folded into a table of 8 columns, 3 rounds at
+              9 points, their challenger, the final rows; signs, ring
+              constants and the stale-beta replay's betas and scale),
+              timed by a CUDA graph beside its bound, its chain floor
+              (perm16_chain at its 63 permutations) and the launch floor;
+              fold_c_round (csrc/comb.cu) against its twin at every fold
+              round width 2^17 ... 2 (round 0 on the head's row-strided
+              rows), the
               clusters of its kernel the card holds at once, two launches
               in flight on two streams (8 times, each against its twin:
               ROADMAP C.h10), its pair sums alone at the lin widths and its
@@ -113,16 +116,17 @@ Phases (each prints its own lines; any failure exits non-zero):
               every kernel (perm8 and sponge8 included: the memory and code
               trees of each prove_vm) > 0, eq_table at least 10 a fold and
               head_alpha one a fold, crt and icrt at least 5 a step,
-              lin_recon_round once a reconstruction round and twice more
-              (its folds) a lin sum-check, coo_matvec once a lin and five
-              times a fold step (mz_stack; mt_eq_stack twice in dec and
-              once in the fold; twice in the head), fold_c_round once a
-              fold round, once a fold sum-check's end and once a factored
-              lin round, ring_mac's sum mode three times a fold step (f0,
-              and dec's y0 twice) and its product mode, ring_mul_each,
-              twice a fold step (dec's commits) and once a lin sum-check
-              (the commit of its witness), and ring_contract called; each
-              prove_vm's tree time and its parts; every lin and fold
+              lin_recon_tail once a lin sum-check, round_tail once a
+              factored lin round and a fold round, coo_matvec once a lin
+              and five times a fold step (mz_stack; mt_eq_stack twice in
+              dec and once in the fold; twice in the head), fold_c_round
+              once a fold round, once a fold sum-check's end and once a
+              factored lin round, ring_mac's sum mode three times a fold
+              step (f0, and dec's y0 twice) and its product mode,
+              ring_mul_each, twice a fold step (dec's commits) and once a
+              lin sum-check (the commit of its witness), and ring_contract
+              called; each prove_vm's tree time and its parts; every lin
+              and fold
               sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
               torch.cuda.set_sync_debug_mode("error"), no other
@@ -173,8 +177,10 @@ multiply-adds into 192-bit sums, one reduction an output); the bytes
 bound both.  crt and icrt are counted from the butterfly networks
 (CRT_OPS: 48 and 72 multiplies, 85 adds or subtracts a ring, never the
 dense twin's 576 products) at the probes' SASS, beside their 384 bytes a
-ring; lin_recon_round from lin_body's field operations with the eq row
-as its weight (recon_ops), beside its launch floor; coo_matvec from the
+ring; lin_recon_tail from its rounds' field operations (recon_tail_ops:
+the lin comb's with the eq row as its weight, the folds, the eq row) and
+its permutations at the straight-line SASS of one, beside its chain
+floor, perm16_chain at its permutations; coo_matvec from the
 multiply-adds that its unreduced sums need (9 an Fq3 product, 3 a scalar
 one, a reduction an output or a head entry) and its bytes, the rows
 gathered counted once and only the head's non-empty rows read back;
@@ -321,7 +327,7 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "eq_table": "latticeum_tpu/zkvm/accel.py:141",
                "head_alpha": "latticeum_tpu/zkvm/accel_nifs.py:997",
                "crt": "latticeum_tpu/ring/rq.py:61",
-               "lin_recon_round": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
+               "lin_recon_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
                "coo_matvec": "latticeum_tpu/zkvm/accel.py:117",
                "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403",
                "ring_mac": "latticeum_tpu/zkvm/accel_nifs.py:796"}
@@ -333,6 +339,7 @@ RING_SOURCE = "latticeum_tpu_torch/csrc/ring.cu"
 COMB_SOURCE = "latticeum_tpu_torch/csrc/comb.cu"
 COO_SOURCE = "latticeum_tpu_torch/csrc/coo.cu"
 RINGMAC_SOURCE = "latticeum_tpu_torch/csrc/ringmac.cu"
+RECON_SOURCE = "latticeum_tpu_torch/csrc/recon.cu"
 # A fold sum-check on the main path makes fewer device launches than this
 # (kernels and copies, counted by torch.profiler): a round's fold_c_round,
 # tail comb (two launches) and round_tail, the end, the uploads and fetch.
@@ -420,7 +427,7 @@ def main():
     records = kernel_checks(torch, np, gl, comb, ccs, prover.dn._lin_sets,
                             dev, rate, mix) + records
     records += recon_checks(torch, np, gl, comb, accel_rounds, prover, dev,
-                            rate, mix)
+                            rate, mix, perm16_sass)
     records += fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix)
 
     phase("coo")
@@ -477,7 +484,7 @@ def main():
     launches["round_tail"] = challenger.round_tail.launches
     launches.update({k.__name__: k.launches for k in tables.KERNELS})
     launches["crt"] = rq.crt.launches + rq.icrt.launches
-    launches["lin_recon_round"] = comb.lin_recon_round.launches
+    launches["lin_recon_tail"] = comb.lin_recon_tail.launches
     launches["coo_matvec"] = accel.coo_matvec.launches
     launches["fold_c_round"] = comb.fold_c_round.launches
     launches["ring_mac"] = rq.ring_mac.launches + rq.ring_mul_each.launches
@@ -504,11 +511,15 @@ def main():
         fail(f"{len(folds)} steps launched crt {rq.crt.launches} and icrt "
              f"{rq.icrt.launches} times (at least 5 a step in all)")
     n_fact = accel_rounds._factored_rounds(prover.dn._cap_pow2, ccs.s)
-    recon_rounds = ccs.s - n_fact
-    if launches["lin_recon_round"] != sumchecks["lin"] * (recon_rounds + 2):
-        fail(f"{sumchecks['lin']} lin sum-checks launched lin_recon_round "
-             f"{launches['lin_recon_round']} times, not {recon_rounds} "
-             "rounds and 2 folds each")
+    if launches["lin_recon_tail"] != sumchecks["lin"]:
+        fail(f"{sumchecks['lin']} lin sum-checks launched lin_recon_tail "
+             f"{launches['lin_recon_tail']} times, not once each")
+    # the reconstruction rounds' tails run inside lin_recon_tail
+    want_rt = sumchecks["fold"] * ccs.s + sumchecks["lin"] * n_fact
+    if launches["round_tail"] != want_rt:
+        fail(f"round_tail launched {launches['round_tail']} times, not "
+             f"{want_rt} ({ccs.s} rounds a fold sum-check, {n_fact} "
+             "factored rounds a lin sum-check)")
     # one mz_stack a lin; three mt_eq_stack (dec twice, fold once) and two
     # for the head a fold
     want_coo = sumchecks["lin"] + 5 * sumchecks["fold"]
@@ -637,7 +648,8 @@ def device_and_build(torch, kernels, native):
         "work per width-16 permutation): " + ", ".join(
             f"{c} {perm16_sass[c]}" for c in CLASSES))
     for name, info in ptxas_by_function(out).items():
-        if "round_tail" in name or "perm16_chain" in name:
+        if any(k in name for k in ("round_tail", "perm16_chain",
+                                   "lin_recon_tail")):
             log(f"  ptxas {name}: {info}")
     rate["sm_mhz"] = sm_mhz
     lat = latencies(torch, *lat_build)
@@ -884,6 +896,24 @@ def recon_ops(sets, q, npts, fold):
     if fold:
         eq += [(2, SUB3), (2, MUL3), (2, ADD3)]
     return tally((1, lin_ops(sets, q, npts, fold)), (8 * q, tally(*eq)))
+
+
+def recon_tail_ops(sets, rows, width, npts):
+    """Field operations of one reconstruction tail over a (rows, 24,
+    width) table (csrc/recon.cu): the Mz rows' fold into column 0, the eq
+    row of log2(width) betas, each round's sums (recon_ops, unfolded), the
+    fold of the table at each challenge and the final fold, its eq row
+    scaled."""
+    nr = width.bit_length() - 1
+    fold = tally((1, SUB3), (1, MUL3), (1, ADD3))
+    terms = [(8 * (rows - 1), fold), (width * (nr - 1), MUL3), (nr, SUB3),
+             (8, MUL3)]
+    w = width
+    while w >= 2:
+        terms += [(1, recon_ops(sets, w // 2, npts, False)),
+                  (8 * rows * (w // 2), fold)]
+        w //= 2
+    return tally(*terms)
 
 
 def head_alpha_ops(m, half):
@@ -1630,16 +1660,23 @@ def ringmac_checks(torch, np, gl, rq, prover, dev, rate, mix):
     return [rec]
 
 
-def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix):
-    """lin_recon_round (zkvm/comb.py, csrc/comb.cu) against its twin on the
-    card, bit for bit, at the main path's reconstruction rounds: the
-    zkVM's t + 1 rows at the width the factored rounds leave, the first
-    round as it is, then each folded round, at degree + 1 points, with the
-    CCS's +-1 signs and with random ring constants; the fold alone of the
-    Mz rows into column 0 and the final fold of every row, scaled; rows of
-    p - 1.  Each timed by a CUDA graph of 50 beside its bound and the
-    launch floor (the fold alone on one row).  Returns the record of the
-    first folded round with signs."""
+def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix,
+                 perm16_sass):
+    """lin_recon_tail (zkvm/comb.py, csrc/recon.cu) against its twin on the
+    card, bit for bit (messages, challenges, challenger state, final
+    rows), at the main path's reconstruction tail: the zkVM's t Mz rows
+    (t, 24, 2) folded at the last factored round's challenge into a
+    2^(s - r) wide table, r the factored rounds, at degree + 1 points,
+    with the CCS's +-1 signs, with random ring constants, and with the
+    stale-beta replay's inputs (ROADMAP C.h9: another proof's betas, the
+    scale _eqf_product of them over the factored rounds' challenges);
+    rows of p - 1.  Each timed by a CUDA graph of 50 beside its
+    throughput bound (recon_tail_ops at the probes' SASS, its
+    permutations at the straight-line SASS of one) and its chain floor:
+    perm16_chain at its permutations (a CUDA graph of 50, its own launch
+    included) and perm16_chain(0), the launch floor.  Returns the record
+    of the signs case."""
+    from latticeum_tpu_torch.crypto import challenger
     ccs, sets = prover.ccs, prover.dn._lin_sets
     rng = np.random.default_rng(23)
 
@@ -1650,71 +1687,67 @@ def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix):
     sets_ring = comb.lin_sets_general(
         sets.S, [[int(v) for v in rng.integers(0, gl.P, 24, dtype=np.uint64)]
                  for _ in sets.S], sets.rows, dev)
-    n_fact = accel_rounds._factored_rounds(prover.dn._cap_pow2, ccs.s)
-    width, npts, rows = 1 << (ccs.s - n_fact), ccs.d + 2, ccs.t + 1
-    log(f"lin reconstruction: {ccs.s - n_fact} rounds after {n_fact} "
-        f"factored, {rows} rows at {width} columns, {npts} points")
+    nv = ccs.s
+    r = accel_rounds._factored_rounds(prover.dn._cap_pow2, nv)
+    width, npts, t_rows = 1 << (nv - r), ccs.d + 2, ccs.t
+    perms = sum(challenger.permutations((3 if k else 5) + 24 * npts)
+                for k in range(r, nv))
+    log(f"lin reconstruction tail: {nv - r} rounds after {r} factored, "
+        f"{t_rows} Mz rows into a table of {width} columns, {npts} points, "
+        f"{perms} permutations")
+
+    def inputs(stale):
+        mz = rnd(t_rows, 24, 2)
+        mz[0] = gl.P_I64 - 1
+        betas = rnd(nv - r, 3)
+        betas[-1] = gl.P_I64 - 1
+        chals = rnd(nv, 3)
+        scale = (torch.stack(accel_rounds._eqf_product(rnd(r, 3),
+                                                       chals[:r]))
+                 if stale else rnd(3))
+        return [mz, betas, scale, rnd(16), rnd(5),
+                torch.zeros((nv, npts, 24), dtype=gl.DTYPE, device=dev),
+                chals]
+
     worst, rec = 0, None
-    for label, ls in (("signs", sets), ("ring constants", sets_ring)):
-        w = width
-        for first in (True, False):
-            while w >= (2 if first else 4):
-                X = rnd(rows, 24, w)
-                X[0] = gl.P_I64 - 1
-                X[-1, :, :w // 2] = gl.P_I64 - 1
-                args = (X, ls, npts, rnd(3)) + (() if first else (rnd(3),))
-                got = comb.lin_recon_round(*args)
-                want = comb.lin_recon_round_twin(*args)
-                e = u64_err(gl, np, got, want)
-                worst = max(worst, e)
-                if e:
-                    fail(f"lin_recon_round {label} X{tuple(X.shape)} "
-                         f"fold={not first}: max_abs_err={e}")
-                q = w // (2 if first else 4)
-                ms = graph_ms(torch, lambda: comb.lin_recon_round(*args), 50)
-                plain = cuda_ms(torch, lambda: comb.lin_recon_round_twin(
-                    *args), 1)
-                nbytes = 8 * (X.numel() + npts * 24 + 3 * (1 + (not first))
-                              + (0 if first else rows * 24 * 2 * q)
-                              + (0 if ls.rings is None
-                                 else ls.rings.numel())) \
-                    + 4 * (ls.off.numel() + ls.idx.numel())
-                work = pipes(recon_ops(ls, q, npts, not first), mix)
-                b_ms, by, limit = bound(rate, nbytes, work)
-                log(f"lin_recon_round {label} X{tuple(X.shape)} "
-                    f"{'first' if first else 'folded'}: bit-exact; "
-                    f"{ms:.4f} ms (CUDA graph of 50), bound {b_ms:.5f} ms "
-                    f"by {limit}, {100 * b_ms / ms:.2f} % of it; twin "
-                    f"{plain:.3f} ms")
-                if label == "signs" and not first and rec is None:
-                    rec = record("lin_recon_round", COMB_SOURCE, 0, ms,
-                                 plain, rate, nbytes, work)
-                if first:
-                    break
-                w //= 2
-    for rows_f, w_out, scaled in ((rows - 1, width, False), (rows, 1, True)):
-        X, r3 = rnd(rows_f, 24, 2), rnd(3)
-        X[1] = gl.P_I64 - 1
-        scale = rnd(3) if scaled else None
-        got = torch.zeros((rows_f, 24, w_out), dtype=gl.DTYPE, device=dev)
-        want = got.clone()
-        comb.lin_recon_fold(X, r3, got, scale)
-        comb.lin_recon_fold_twin(X, r3, want, scale)
-        e = u64_err(gl, np, got, want)
+    st = rnd(16)
+    floor = graph_ms(torch, lambda: challenger.perm16_chain(st, perms), 50)
+    launch_floor = graph_ms(torch, lambda: challenger.perm16_chain(st, 0),
+                            50)
+    for label, ls, stale in (("signs", sets, False),
+                             ("ring constants", sets_ring, False),
+                             ("signs, stale betas (C.h9)", sets, True)):
+        x = inputs(stale)
+        got = [t.clone() for t in x]
+        want = [t.clone() for t in x]
+        final = comb.lin_recon_tail(*got, ls, r)
+        final_twin = comb.lin_recon_tail_twin(*want, ls, r)
+        e = max(u64_err(gl, np, a, b) for a, b in
+                zip([final] + got[3:], [final_twin] + want[3:]))
         worst = max(worst, e)
         if e:
-            fail(f"lin_recon_fold {rows_f} rows scaled={scaled}: "
-                 f"max_abs_err={e}")
-        ms = graph_ms(torch, lambda: comb.lin_recon_fold(X, r3, got, scale),
-                      50)
-        log(f"lin_recon_fold {rows_f} x 24 x 2 -> column 0 of {w_out}"
-            f"{', scaled' if scaled else ''}: bit-exact; {ms:.4f} ms (CUDA "
-            "graph of 50)")
-    X, r3, out = rnd(1, 24, 2), rnd(3), rnd(1, 24, 1)
-    floor = graph_ms(torch, lambda: comb.lin_recon_fold(X, r3, out), 50)
-    log(f"lin_recon_round launch floor (the fold alone on one row): "
-        f"{floor:.4f} ms (CUDA graph of 50); the record's round at "
-        f"{rec['ms'] / floor:.1f} x it")
+            fail(f"lin_recon_tail {label}: max_abs_err={e}")
+        ms = graph_ms(torch, lambda: comb.lin_recon_tail(*got, ls, r), 50)
+        plain = cuda_ms(torch, lambda: comb.lin_recon_tail_twin(*want, ls,
+                                                                r), 1)
+        nbytes = 8 * (x[0].numel() + x[1].numel() + 3 + 2 * 16 + 5
+                      + (nv - r) * (npts * 24 + 3) + 3
+                      + (t_rows + 1) * 24 + 166
+                      + (0 if ls.rings is None else ls.rings.numel())) \
+            + 4 * (ls.off.numel() + ls.idx.numel() + len(ls.S))
+        ops = pipes(recon_tail_ops(ls, t_rows + 1, width, npts), mix)
+        work = {c: ops[c] + perms * perm16_sass[c] for c in CLASSES}
+        b_ms, by, limit = bound(rate, nbytes, work)
+        log(f"lin_recon_tail {label}: bit-exact; {ms:.4f} ms (CUDA graph "
+            f"of 50); its chain floor, perm16_chain at {perms} "
+            f"permutations, {floor:.4f} ms: {100 * floor / ms:.1f} % of it; "
+            f"launch floor {launch_floor:.4f} ms; bound {b_ms:.6f} ms by "
+            f"{limit} (the rounds {ops['total']:.4g} instructions, the "
+            f"permutations {perms * perm16_sass['total']:.4g}), "
+            f"{100 * b_ms / ms:.3f} % of it; twin {plain:.3f} ms")
+        if rec is None:
+            rec = record("lin_recon_tail", RECON_SOURCE, 0, ms, plain, rate,
+                         nbytes, work)
     rec["max_abs_err"] = worst
     return [rec]
 
@@ -2009,7 +2042,7 @@ def trace_sumchecks(nv, K, width):
 
     def kernels():          # device kernels the wrappers launched so far
         return (2 * sum(w.launches for w in comb.WRAPPERS)
-                + comb.lin_recon_round.launches + comb.fold_c_round.launches
+                + comb.lin_recon_tail.launches + comb.fold_c_round.launches
                 + challenger.round_tail.launches + tables.eq_table.launches)
     out = {}
     for kind, run in runs.items():

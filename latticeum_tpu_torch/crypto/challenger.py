@@ -164,7 +164,7 @@ def round_tail_twin(sums, lag, points, E, state, pend, weighted=True):
     return msg, torch.stack(chal), state, E
 
 
-def _kernel_consts(device):
+def kernel_consts(device):
     """The 166 constants in the kernel's order, once per device."""
     if device not in _consts_on:
         flat = ([v for rc in consts.W16_EXTERNAL_INITIAL for v in rc]
@@ -229,7 +229,7 @@ def round_tail(sums, lag, points, E, state, pend, msgs, chals, r,
     launch("lt_round_tail", ptr(sums), ptr(lag) if weighted else null,
            ptr(points) if weighted else null, ptr(E) if weighted else null,
            ptr(state), ptr(pend), ptr(msgs), ptr(chals),
-           ptr(_kernel_consts(sums.device)), lag.shape[0] if weighted else 0,
+           ptr(kernel_consts(sums.device)), lag.shape[0] if weighted else 0,
            msgs.shape[1], sums.shape[0], pend.shape[0], msgs.shape[0], r,
            int(weighted), stream())
     round_tail.launches += 1
@@ -254,7 +254,7 @@ def perm16_chain(state, n):
     if route((state,)) == "cpu":
         return perm16_chain_twin(state, n)
     out = state.clone()
-    launch("lt_perm16_chain", ptr(out), ptr(_kernel_consts(state.device)), n,
+    launch("lt_perm16_chain", ptr(out), ptr(kernel_consts(state.device)), n,
            stream())
     perm16_chain.launches += 1
     return out

@@ -5,10 +5,6 @@
 //   fold_roundr_kernel  <- fold_roundr_pallas   (pallas_comb.py:176)
 //   lin_round0_kernel   <- lin_round0_pallas    (pallas_comb.py:317)
 //   lin_roundr_kernel   <- lin_roundr_pallas    (pallas_comb.py:365)
-// and the rounds of the truncated lin sum-check's reconstruction tail, an
-// XLA function of the JAX package (accel_dev_fs.py:212
-// run_fixed_phase_dev):
-//   lin_recon_kernel, lin_recon_fold_kernel
 // and the XLA half of the fold round, the c terms and the eq pair sums
 // around the Pallas tail comb (accel_rounds.py:403 _make_round_pallas),
 // with the lin rounds' eq pair sums and the fold sum-check's end:
@@ -175,16 +171,7 @@ __device__ __forceinline__ void fold_body(const u64 *__restrict__ X,
 // The constants c_i are +-1 signs (set_sign, RING false: the zkVM's CCS),
 // or rings (set_c, RING true: (nsets, 24) slot-major values, one Fq3
 // multiply a multiset where the signed form adds or subtracts).
-// With EQ (the reconstruction rounds) the weight is not Tc but X's row
-// eq_row, folded and extended to each point like the Mz rows, times the
-// Fq3 scale: acc[t] = scale * e_t(x) * sum_i c_i prod f_t[j].  Those
-// launches are a few columns wide and latency-bound, so there the fold
-// (fold_rt) and the kind of constants (set_c null or not) are run-time
-// choices, one instantiation a point count, and while the width leaves
-// threads of the block spare, the multisets are dealt over them: thread
-// (x, lane) takes every (BLOCK / q)-th multiset from its lane on, and the
-// block's reduction adds the lanes' sums.
-template <int NPTS, bool FOLD, bool RING, bool EQ>
+template <int NPTS, bool FOLD, bool RING>
 __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
                                          u64 *__restrict__ F,
                                          const u64 *__restrict__ Tc,
@@ -193,35 +180,20 @@ __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
                                          const int *__restrict__ set_sign,
                                          const u64 *__restrict__ set_c,
                                          int nsets, u64 *__restrict__ partial,
-                                         long long q, Fq3 r, int eq_row,
-                                         const u64 *__restrict__ scale,
-                                         bool fold_rt) {
-  const bool fold = EQ ? fold_rt : FOLD;
-  const bool ring = EQ ? set_c != nullptr : RING;
+                                         long long q, Fq3 r) {
   const int slot = blockIdx.y;
-  long long x = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  bool active = x < q;
-  int i0 = 0, di = 1;
-  if (EQ && q < BLOCK) {
-    di = BLOCK / (int)q;
-    i0 = threadIdx.x / (int)q;
-    x = threadIdx.x % (int)q;
-    active = i0 < di;
-  }
+  const long long x = (long long)blockIdx.x * BLOCK + threadIdx.x;
   Fq3 acc[NPTS];
 #pragma unroll
   for (int t = 0; t < NPTS; ++t) acc[t] = fq3_zero();
-  if (active) {
-    for (int i = i0; i < nsets; i += di) {
+  if (x < q) {
+    for (int i = 0; i < nsets; ++i) {
       const int k0 = set_off[i];
       const int k1 = set_off[i + 1];
       Fq3 prod[NPTS];
       for (int k = k0; k < k1; ++k) {
         Fq3 v0, v1;
-        if (fold)
-          row_pair<true>(X, F, q, set_idx[k], slot, x, r, v0, v1);
-        else
-          row_pair<false>(X, F, q, set_idx[k], slot, x, r, v0, v1);
+        row_pair<FOLD>(X, F, q, set_idx[k], slot, x, r, v0, v1);
         const Fq3 step = fq3_sub(v1, v0);
         Fq3 f = v0;
 #pragma unroll
@@ -234,7 +206,7 @@ __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
           f = fq3_add(f, step);
         }
       }
-      if (ring) {
+      if (RING) {
         const u64 *c = set_c + (long long)i * 24 + 3 * slot;
         const Fq3 ci = Fq3{c[0], c[1], c[2]};
 #pragma unroll
@@ -248,25 +220,9 @@ __device__ __forceinline__ void lin_body(const u64 *__restrict__ X,
         for (int t = 0; t < NPTS; ++t) acc[t] = fq3_sub(acc[t], prod[t]);
       }
     }
-    if (EQ) {
-      Fq3 e0, e1;
-      if (fold)
-        row_pair<true>(X, F, q, eq_row, slot, x, r, e0, e1);
-      else
-        row_pair<false>(X, F, q, eq_row, slot, x, r, e0, e1);
-      const Fq3 s = Fq3{scale[0], scale[1], scale[2]};
-      Fq3 e = fq3_mul(e0, s);
-      const Fq3 estep = fq3_mul(fq3_sub(e1, e0), s);
+    const Fq3 tc = load3(Tc + (long long)3 * slot * q, q, x);
 #pragma unroll
-      for (int t = 0; t < NPTS; ++t) {
-        acc[t] = fq3_mul(acc[t], e);
-        e = fq3_add(e, estep);
-      }
-    } else {
-      const Fq3 tc = load3(Tc + (long long)3 * slot * q, q, x);
-#pragma unroll
-      for (int t = 0; t < NPTS; ++t) acc[t] = fq3_mul(acc[t], tc);
-    }
+    for (int t = 0; t < NPTS; ++t) acc[t] = fq3_mul(acc[t], tc);
   }
   store_partials<NPTS>(acc, partial, slot);
 }
@@ -300,9 +256,8 @@ __global__ void __launch_bounds__(BLOCK)
                       const int *__restrict__ set_sign,
                       const u64 *__restrict__ set_c, int nsets,
                       u64 *__restrict__ partial, long long q) {
-  lin_body<NPTS, false, RING, false>(X, nullptr, Tc, set_off, set_idx,
-                                     set_sign, set_c, nsets, partial, q,
-                                     fq3_zero(), 0, nullptr, false);
+  lin_body<NPTS, false, RING>(X, nullptr, Tc, set_off, set_idx, set_sign,
+                              set_c, nsets, partial, q, fq3_zero());
 }
 
 template <int NPTS, bool RING>
@@ -315,58 +270,8 @@ __global__ void __launch_bounds__(BLOCK)
                       const u64 *__restrict__ set_c, int nsets,
                       u64 *__restrict__ partial, long long q,
                       const u64 *__restrict__ r3) {
-  lin_body<NPTS, true, RING, false>(X, F, Tc, set_off, set_idx, set_sign,
-                                    set_c, nsets, partial, q,
-                                    Fq3{r3[0], r3[1], r3[2]}, 0, nullptr,
-                                    true);
-}
-
-// A reconstruction round over X (rows + 1, 24, w): the last row is the eq
-// row.  With r3, X is folded at r3 first (width 4q, F written), else read
-// as it is (width 2q).  The width is at most a few columns, so one block
-// in x is the rule and its partial sums are the message itself.
-template <int NPTS>
-__global__ void __launch_bounds__(BLOCK)
-    lin_recon_kernel(const u64 *__restrict__ X, u64 *__restrict__ F,
-                     const int *__restrict__ set_off,
-                     const int *__restrict__ set_idx,
-                     const int *__restrict__ set_sign,
-                     const u64 *__restrict__ set_c, int nsets,
-                     u64 *__restrict__ partial, long long q,
-                     const u64 *__restrict__ r3,
-                     const u64 *__restrict__ scale, int eq_row) {
-  const bool fold = r3 != nullptr;
-  lin_body<NPTS, false, false, true>(
-      X, F, nullptr, set_off, set_idx, set_sign, set_c, nsets, partial, q,
-      fold ? Fq3{r3[0], r3[1], r3[2]} : fq3_zero(), eq_row, scale, fold);
-}
-
-// The reconstruction's fold alone: out[row, :, x] = X[row, :, x] +
-// r (X[row, :, w + x] - X[row, :, x]) for x < w, X (rows, 24, 2w), out
-// rows of out_w >= w columns, zero past column w; with a scale, the last
-// row's values are multiplied by it.  One thread per (row, slot, x < out_w).
-__global__ void __launch_bounds__(BLOCK)
-    lin_recon_fold_kernel(const u64 *__restrict__ X, u64 *__restrict__ out,
-                          int rows, long long w, long long out_w,
-                          const u64 *__restrict__ r3,
-                          const u64 *__restrict__ scale) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= rows * 8 * out_w) return;
-  const long long x = i % out_w;
-  const int slot = (int)((i / out_w) % 8);
-  const int row = (int)(i / (8 * out_w));
-  u64 *o = out + ((long long)row * 24 + 3 * slot) * out_w;
-  if (x >= w) {
-    store3(o, out_w, x, fq3_zero());
-    return;
-  }
-  const u64 *xr = X + ((long long)row * 24 + 3 * slot) * 2 * w;
-  const Fq3 a = load3(xr, 2 * w, x);
-  const Fq3 b = load3(xr, 2 * w, w + x);
-  Fq3 v = fq3_add(a, fq3_mul(Fq3{r3[0], r3[1], r3[2]}, fq3_sub(b, a)));
-  if (scale != nullptr && row == rows - 1)
-    v = fq3_mul(v, Fq3{scale[0], scale[1], scale[2]});
-  store3(o, out_w, x, v);
+  lin_body<NPTS, true, RING>(X, F, Tc, set_off, set_idx, set_sign, set_c,
+                             nsets, partial, q, Fq3{r3[0], r3[1], r3[2]});
 }
 
 // One fold round's c terms and eq pair sums.  The eq rows eq (3, 24, w),
@@ -848,38 +753,6 @@ int lt_lin_roundr(const u64 *X, u64 *F, const u64 *Tc, const int *set_off,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_partials(partial, out, comb_grid(q).x, npts, stream);
-}
-
-// A reconstruction round: r3 null reads X (width 2q), else folds X (width
-// 4q) at r3 into F.  The sums go to partial (nbx, npts, 24) and are added
-// into out, or, with one block in x, straight into out (partial == out).
-int lt_lin_recon_round(const u64 *X, u64 *F, const int *set_off,
-                       const int *set_idx, const int *set_sign,
-                       const u64 *set_c, int nsets, u64 *partial, u64 *out,
-                       long long q, const u64 *r3, const u64 *scale,
-                       int eq_row, int npts, cudaStream_t stream) {
-#define LT_CASE(N)                                                           \
-  case N:                                                                    \
-    lin_recon_kernel<N><<<comb_grid(q), BLOCK, 0, stream>>>(                 \
-        X, F, set_off, set_idx, set_sign, set_c, nsets, partial, q, r3,      \
-        scale, eq_row);                                                      \
-    break;
-  LT_DISPATCH_LIN(npts, LT_CASE)
-#undef LT_CASE
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || partial == out) return (int)err;
-  return (int)reduce_partials(partial, out, comb_grid(q).x, npts, stream);
-}
-
-// The reconstruction's fold alone (lin_recon_fold_kernel); scale may be
-// null.
-int lt_lin_recon_fold(const u64 *X, u64 *out, int rows, long long w,
-                      long long out_w, const u64 *r3, const u64 *scale,
-                      cudaStream_t stream) {
-  const long long n = (long long)rows * 8 * out_w;
-  lin_recon_fold_kernel<<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0,
-                          stream>>>(X, out, rows, w, out_w, r3, scale);
-  return (int)cudaGetLastError();
 }
 
 // One fold round's c terms and eq pair sums (fold_c_kernel): r3 null reads

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
-           "tables.cu", "ring.cu", "coo.cu", "ringmac.cu")
+           "tables.cu", "ring.cu", "coo.cu", "ringmac.cu", "recon.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -101,9 +101,8 @@ SIGNATURES = {
     "lt_fold_roundr": [_VP] * 6 + [_I32, _I64, _VP, _I32, _VP],
     "lt_lin_round0": [_VP] * 6 + [_I32, _VP, _VP, _I64, _I32, _VP],
     "lt_lin_roundr": [_VP] * 7 + [_I32, _VP, _VP, _I64, _VP, _I32, _VP],
-    "lt_lin_recon_round": [_VP] * 6 + [_I32, _VP, _VP, _I64, _VP, _VP, _I32,
-                                       _I32, _VP],
-    "lt_lin_recon_fold": [_VP] * 2 + [_I32, _I64, _I64, _VP, _VP, _VP],
+    "lt_lin_recon_tail": [_VP, _I32] + [_VP] * 4 + [_I32] + [_VP] * 7
+    + [_I32] * 5 + [_VP] * 2,
     "lt_perm8": [_VP] * 3 + [_I64, _I32, _VP],
     "lt_sponge8": [_VP] * 3 + [_I64, _I64, _I32, _VP],
     "lt_digit_split": [_VP] * 2 + [_I32] * 2 + [_I64] + [_I32] * 5 + [_VP],

@@ -43,12 +43,13 @@ def rand_point(rng, nv):
             for _ in range(nv)]
 
 
-def fold_inputs(nv, K, b_small=2, seed=11, device="cpu"):
+def fold_inputs(nv, K, b_small=2, seed=11, device="cuda"):
     """Production-shaped inputs of the fold sum-check at m = 2^nv: the
     squeezed mu and beta challenges of a fresh transcript (as the JAX
     package squeezes its mu), seeded points r1 and r2, their eq tables, two
     random c rows and 2K*TAU rows of balanced digits (digit, 0, 0) per
     slot, the values drawn on `device` from `seed`."""
+    device = M.device_of(device)
     rng = np.random.default_rng(seed)
     _, beta, _, mu_s = fold.squeeze_alpha_beta_zeta_mu(Transcript(), nv, K)
     points = (rand_point(rng, nv), rand_point(rng, nv), beta)
@@ -107,10 +108,11 @@ def count_collectives(comm, fn, *args, **kwargs):
 
 def launches():
     """The launch counts of the sum-checks' kernels: the four comb kernels,
-    fold_c_round (with the pair sums and the end) and round_tail (0 on the
-    CPU, where their twins run)."""
+    fold_c_round (with the pair sums and the end), the lin reconstruction
+    tail and round_tail (0 on the CPU, where their twins run)."""
     out = {w.__name__: w.launches for w in comb.WRAPPERS}
     out["fold_c_round"] = comb.fold_c_round.launches
+    out["lin_recon_tail"] = comb.lin_recon_tail.launches
     out["round_tail"] = challenger.round_tail.launches
     return out
 
@@ -145,8 +147,9 @@ def in_turns(comm, fn, *args, **kwargs):
     return out
 
 
-def ajtai_inputs(n, kappa=32, seed=3, device="cpu"):
+def ajtai_inputs(n, kappa=32, seed=3, device="cuda"):
     """Row-constant Ajtai rows (kappa, 24) and a witness f (n, 24)."""
+    device = M.device_of(device)
     gen = torch.Generator(device).manual_seed(seed)
     return rand_field((kappa, 24), gen), rand_field((n, 24), gen)
 
@@ -177,13 +180,14 @@ def _result(comm, one, single_s, run):
             "launches": counts, "single_s": single_s, "sharded_s": sharded_s}
 
 
-def sharded_vs_single(comm, m=1 << 13, K=15, b_small=2, device="cpu",
+def sharded_vs_single(comm, m=1 << 13, K=15, b_small=2, device="cuda",
                       seed=11, kappa=32, log=None):
     """The fold sum-check at m = 2^nv unsharded (rank by rank) and sharded
     over `comm`, on the same inputs, and the row-constant Ajtai commitment
     of an m/2-row witness unsharded and sharded: the JAX function's result
     dict (equality flags, shapes), with each run's seconds and the
     sharded run's collectives and kernel launches."""
+    device = M.device_of(device)
     nv = int(m).bit_length() - 1
     inputs = fold_inputs(nv, K, b_small, seed, device)
     one, single_s = in_turns(comm, _timed, device, run_fold_sumcheck,
@@ -198,12 +202,13 @@ def sharded_vs_single(comm, m=1 << 13, K=15, b_small=2, device="cpu",
             "ajtai_equal": torch.equal(cm_1, cm_n)}
 
 
-def sharded_dryrun(comm, m=1 << 10, K=15, b_small=2, device="cpu",
+def sharded_dryrun(comm, m=1 << 10, K=15, b_small=2, device="cuda",
                    log=None):
     """One sharded fold sum-check, checked without an unsharded run by the
     sum-check chain: p_i(0) + p_i(1) == p_{i-1}(r_{i-1}) for every round
     i >= 1 (the verifier's round check), which any corrupt shard or
     diverged transcript breaks."""
+    device = M.device_of(device)
     nv = int(m).bit_length() - 1
     proof, chals, _, _ = run_fold_sumcheck(
         fold_inputs(nv, K, b_small, device=device), comm, log)

@@ -41,12 +41,13 @@ def _zkvm_S_c():
     return tuple(tuple(int(j) for j in s) for s in ccs.S), signs, ccs.t
 
 
-def lin_inputs(nv, n0=None, S_c=None, seed=17, device="cpu"):
+def lin_inputs(nv, n0=None, S_c=None, seed=17, device="cuda"):
     """The lin sum-check's inputs at 2^nv rows, its stack n0 columns wide
     (2^nv unless given): seeded betas, t random Mz rows and the betas' eq
     row (truncated to n0 rows, the skipped variables folded in, as the
     prover's lin_g_t builds it), the multisets and signs `S_c` (the zkVM's
     when None), all drawn on `device` from `seed`."""
+    device = M.device_of(device)
     S, signs, t_rows = _zkvm_S_c() if S_c is None else S_c
     n0 = 1 << nv if n0 is None else n0
     beta = rand_point(np.random.default_rng(seed), nv)
@@ -74,12 +75,13 @@ def run_lin_sumcheck(inputs, comm=None, log=None):
     return proof, chals, final, t
 
 
-def sharded_lin_vs_single(comm, nv=10, n0=None, device="cpu", seed=17,
+def sharded_lin_vs_single(comm, nv=10, n0=None, device="cuda", seed=17,
                           S_c=None, log=None):
     """The lin sum-check with the zkVM's multiset structure unsharded (rank
     by rank) and sharded over `comm` on the same inputs: equality flags,
     shapes, each run's seconds and the sharded run's collectives and
     kernel launches."""
+    device = M.device_of(device)
     inputs = lin_inputs(nv, n0, S_c, seed, device)
     one, single_s = in_turns(comm, _timed, device, run_lin_sumcheck, inputs,
                              log=log)
@@ -90,8 +92,9 @@ def sharded_lin_vs_single(comm, nv=10, n0=None, device="cpu", seed=17,
                       sharded_run(comm, device, run_lin_sumcheck, inputs))}
 
 
-def crt_batch(batch, seed=23, device="cpu"):
+def crt_batch(batch, seed=23, device="cuda"):
     """(batch, 24) random coefficient-form rings."""
+    device = M.device_of(device)
     return rand_field((batch, 24), torch.Generator(device).manual_seed(seed))
 
 

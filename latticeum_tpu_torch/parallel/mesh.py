@@ -39,6 +39,17 @@ from ..field import goldilocks as gl
 BACKEND_DEVICES = {"gloo": ("cpu", "cuda"), "nccl": ("cuda",)}
 
 
+def device_of(device):
+    """torch.device(device) for the entry points of ``parallel/``, which
+    default to the card: a CUDA device where torch finds no card raises,
+    so nothing runs on the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device (pass "
+                           "device='cpu' to run on the CPU)")
+    return dev
+
+
 def mesh_shape(world: int):
     """(rows, slots) of a world of `world` ranks: slots 2 when the world is
     even and above 2, as the JAX package factors its devices."""

@@ -53,24 +53,26 @@ def init_distributed(backend, init_method=None, rank=None, world_size=None,
     return True
 
 
-def global_mesh(rows=None, device="cpu"):
+def global_mesh(rows=None, device="cuda"):
     """A DeviceMesh over every rank, dims ("rows", "slots"): rows defaults
     to the world size (slots 1), as the JAX package's global mesh."""
     from torch.distributed.device_mesh import init_device_mesh
+    device = M.device_of(device)
     world = dist.get_world_size()
     rows = rows or world
     if world % rows:
         raise ValueError(f"{world} ranks do not form {rows} rows")
-    return init_device_mesh(torch.device(device).type,
-                            (rows, world // rows),
+    return init_device_mesh(device.type, (rows, world // rows),
                             mesh_dim_names=("rows", "slots"))
 
 
-def fold_round_global(comm=None, m=1 << 10, K=15, b_small=2, device="cpu"):
+def fold_round_global(comm=None, m=1 << 10, K=15, b_small=2,
+                      device="cuda"):
     """Round 0 of the production fold sum-check over every rank: each
     rank's sums over its strided columns, all-reduced.  Returns the round's
     (2*b_small + 4, 24) sums as host ints, the same on every rank and
     equal to a single process's (comm None)."""
+    device = M.device_of(device)
     inputs = fold_mesh.fold_inputs(int(m).bit_length() - 1, K, b_small,
                                    device=device)
     head, tail = inputs["head"], inputs["tail"]
@@ -86,11 +88,13 @@ def fold_round_global(comm=None, m=1 << 10, K=15, b_small=2, device="cpu"):
     return gl.to_int_lists(sums)
 
 
-def full_fold_global(comm=None, m=1 << 10, K=15, b_small=2, device="cpu"):
+def full_fold_global(comm=None, m=1 << 10, K=15, b_small=2,
+                     device="cuda"):
     """The whole production fold sum-check (log2 m rounds, the transcript)
     over every rank, or in one process (comm None).  Returns (proof,
     chals, final, transcript state, wall seconds): all but the seconds
     bit-identical on every rank and to the single process."""
+    device = M.device_of(device)
     inputs = fold_mesh.fold_inputs(int(m).bit_length() - 1, K, b_small,
                                    device=device)
     t0 = time.perf_counter()

@@ -28,8 +28,9 @@ truncated (its width below 2^nv, ROADMAP C.h5), the remaining variables
 are finished by unfactored rounds over an eq table rebuilt from this call's
 betas, scaled by prod eqf(beta_j, r_j) over the device challenges; the
 betas are arguments of every call, never kept from an earlier one (the
-fault of the JAX package's device path, ROADMAP C.h9).  Each of those
-rounds is one ``comb.lin_recon_round`` launch and its round tail.
+fault of the JAX package's device path, ROADMAP C.h9).  Those rounds,
+their round tails and the folds around them are one
+``comb.lin_recon_tail`` launch.
 
 All arrays are t-layout (rows, 24, n) with a bit-reversed hypercube, so a
 round pairs the two contiguous halves.
@@ -54,7 +55,7 @@ from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
 from ..host.field import host as H
 from ..ring import rq
-from . import comb, tables
+from . import comb
 
 P = gl.P
 fetches = 0          # device -> host copies made by the sum-checks
@@ -187,39 +188,19 @@ def _eqf_product(betas, chals):
     return out
 
 
-def _lin_reconstruct(mz, nv, r, degree, sets, betas, scale, state, pend0,
-                     msgs, chals):
-    """Unfactored rounds r..nv-1 of a truncated lin stack: mz the Mz rows
-    after the factored rounds (t, 24, 2), folded here at chals[r - 1]
-    into column 0 of a 2^(nv-r) wide table (mz (t, 24, 1) as it is when
-    r is 0), under the eq row: the eq table of the remaining `betas`,
-    whose weight is `scale` = prod eqf(beta_j, r_j) over the rounds
-    before, a (3,) device tensor.  Each round's message is its plain sums
-    at degree+1 points: one comb.lin_recon_round launch (its fold of the
-    previous challenge fused) and one round tail.  Returns the final rows
-    [Mz..., eq], folded and scaled by the same kernel."""
-    t_rows, dev = mz.shape[0], mz.device
-    rows = 1 << (nv - r)
-    shape = (t_rows + 1, 24, rows)
-    if r:
-        cur = torch.empty(shape, dtype=gl.DTYPE, device=dev)
-        comb.lin_recon_fold(mz, chals[r - 1], cur[:t_rows])
-    else:
-        cur = torch.zeros(shape, dtype=gl.DTYPE, device=dev)
-        cur[:t_rows, :, :1] = mz
-    tables.eq_table(betas, rows, dev, t_layout=True, out=cur[t_rows])
-    for k in range(r, nv):
-        if k == r:
-            msg = comb.lin_recon_round(cur, sets, degree + 1, scale)
-        else:
-            msg, cur = comb.lin_recon_round(cur, sets, degree + 1, scale,
-                                            chals[k - 1])
-        challenger.round_tail(msg, None, None, None, state,
-                              _pending(pend0, chals, k), msgs, chals, k,
-                              weighted=False)
-    final = torch.empty((t_rows + 1, 24, 1), dtype=gl.DTYPE, device=dev)
-    comb.lin_recon_fold(cur, chals[nv - 1], final, scale)
-    return final[..., 0]
+def _lin_reconstruct(mz, r, sets, betas, scale, state, pend0, msgs, chals):
+    """Unfactored rounds r..nv-1 of a truncated lin stack ((nv, degree + 1)
+    = msgs.shape[:2]), one comb.lin_recon_tail launch: mz the Mz rows
+    after the factored rounds (t, 24, 2), folded at chals[r - 1] into
+    column 0 of a 2^(nv-r) wide table (mz (t, 24, 1) as it is when r is
+    0), under the eq row: the eq table of the remaining `betas` (host Fq3
+    triples, uploaded here), whose weight is `scale` = prod eqf(beta_j,
+    r_j) over the rounds before, a (3,) device tensor.  Each round's
+    message is its plain sums at degree+1 points, through the unweighted
+    round tail.  Returns the final rows [Mz..., eq], folded and scaled."""
+    return comb.lin_recon_tail(mz.contiguous(),
+                               _ints([list(b) for b in betas], mz.device),
+                               scale, state, pend0, msgs, chals, sets, r)
 
 
 def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
@@ -258,7 +239,8 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
         own = recon_betas is None
         recon = beta_s if own else recon_betas
         if not own:
-            recon_d = _ints([list(b) for b in recon[:n_fact]], dev)
+            recon_d = _ints([list(b) for b in recon[:n_fact]],
+                            dev).reshape(n_fact, 3)
     # every round writes its row of both
     msgs = torch.empty((nv, n_msg, 24), dtype=gl.DTYPE, device=dev)
     chals = torch.empty((nv, 3), dtype=gl.DTYPE, device=dev)
@@ -281,9 +263,8 @@ def run_lin_rounds_factored(transcript, g_t, nv, degree, sets, beta_s,
         # E is prod_{j < n_fact} eqf(beta_j, r_j) already
         scale = (E[0] if own else
                  torch.stack(_eqf_product(recon_d, chals[:n_fact])))
-        final = _lin_reconstruct(mz, nv, n_fact, degree, sets,
-                                 recon[n_fact:], scale, state, pend0, msgs,
-                                 chals)
+        final = _lin_reconstruct(mz, n_fact, sets, recon[n_fact:], scale,
+                                 state, pend0, msgs, chals)
     else:
         if n_fact:
             mz = comb.fold_t(mz, chals[n_fact - 1])

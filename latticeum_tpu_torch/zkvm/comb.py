@@ -1,4 +1,4 @@
-"""The four sum-check comb kernels, the lin reconstruction round and the
+"""The four sum-check comb kernels, the lin reconstruction tail and the
 fold round's c pass: wrappers, plain-torch twins, launch counts.
 
 Counterparts of the Pallas kernels in ``latticeum_tpu/zkvm/pallas_comb.py``
@@ -7,7 +7,8 @@ Counterparts of the Pallas kernels in ``latticeum_tpu/zkvm/pallas_comb.py``
 ``latticeum_tpu/zkvm/accel_dev_fs.py:212`` ``run_fixed_phase_dev`` and of the
 XLA half of the fold round, ``latticeum_tpu/zkvm/accel_rounds.py:403``
 ``_make_round_pallas`` (its ``_fold_t`` of the c rows, ``_pair_sum`` of the
-eq tables and the c terms); the CUDA bodies are in ``csrc/comb.cu``.
+eq tables and the c terms); the CUDA bodies are in ``csrc/comb.cu``, the
+reconstruction tail's in ``csrc/recon.cu``.
 
 All arrays are t-layout int64 Goldilocks tensors, (rows, 24, width) with
 slot-major ring positions 3*s + c and the (bit-reversed) hypercube on the
@@ -27,16 +28,18 @@ minor axis, so a sum-check round pairs column x with column x + half.
   prod_{j in S_i} f_t[j], t < npts, over X (rows, 24, 2q).
 * ``lin_roundr(X, Tc, r3, sets, npts)``: fold at r as above, then the lin
   sums over F; returns (S, F).
-* ``lin_recon_round(X, sets, npts, scale3, r3=None)``: a round of the
-  truncated lin sum-check's reconstruction tail over X (rows + 1, 24, 2q),
-  whose last row is the eq row: S[t] = sum_x scale * e_t(x) * sum_i c_i
-  prod_{j in S_i} f_t[j], with e_t the eq row extended to point t like
-  the Mz rows; scale3 a (3,) device tensor.  With r3, X (rows + 1, 24, 4q)
-  is folded at r3 first and (S, F) returned.  ``lin_recon_fold(X, r3, out,
-  scale3=None)`` is the same kernel's fold alone: out[..., :w] = X folded
-  at r3 (X width 2w), the last row times scale3 where given, and
-  out[..., w:] = 0.  Both count their launches in
-  ``lin_recon_round.launches``.
+* ``lin_recon_tail(mz, betas, scale3, state, pend0, msgs, chals, sets,
+  r)``: the truncated lin sum-check's reconstruction tail, rounds r ..
+  nv - 1, in one launch (csrc/recon.cu): the Mz rows mz (t, 24, 2) folded
+  at chals[r - 1] (mz (t, 24, 1) as it is when r is 0) into column 0 of a
+  2^(nv - r) wide table, zero past it, under the eq row of `betas` (nv -
+  r, 3); each round's message S[t] = sum_x scale * e_t(x) * sum_i c_i
+  prod_{j in S_i} f_t[j] at npts = msgs.shape[1] points, e_t the eq row
+  extended to point t like the Mz rows, goes through the unweighted
+  round tail (``challenger.round_tail``) into msgs[k], chals[k] and the
+  challenger state, and the table is folded at the challenge.  Returns
+  the final rows (t + 1, 24): the table folded at chals[nv - 1], the eq
+  row times scale3.
 * ``fold_c_round(c2r, eqs, r3, sums)``: a fold round's c terms and eq pair
   sums, one launch: c2r (2, 24, w) read as it is (r3 None) or (2, 24, 2w)
   folded at r3 first; Tn = the pair sums of eqs (3, 24, w), (3, 24, w/2);
@@ -64,14 +67,19 @@ from dataclasses import dataclass
 
 import torch
 
+from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
 from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
                        route as _route, stream as _stream)
 from ..ring import rq
+from . import tables
 
 BLOCK = 128          # threads per block of every comb kernel (csrc/comb.cu)
 MAX_B_SMALL = 4      # fold kernels are instantiated for npts = 2 .. 8
 MAX_LIN_PTS = 12     # lin kernels are instantiated for npts = 1 .. 12
+MAX_RECON_ROUNDS = 5  # the reconstruction tail's table is <= 32 columns
+# the tail's shared memory beyond its static 18.8 KB (csrc/recon.cu)
+MAX_RECON_SMEM = 192 * 1024
 _TWIN_COLS = 8192    # column chunk of the twins (bounds their temporaries)
 
 
@@ -292,6 +300,37 @@ def lin_recon_fold_twin(X, r3, out, scale3=None):
     return out
 
 
+def lin_recon_tail_twin(mz, betas, scale3, state, pend0, msgs, chals, sets,
+                        r):
+    """The reconstruction tail as the port ran it before its kernel, plain
+    torch, in the same order: the fold of the Mz rows into column 0, the
+    eq table of the betas, then each round and its unweighted round tail,
+    then the final fold, scaled."""
+    nv, npts = msgs.shape[0], msgs.shape[1]
+    t_rows, dev = mz.shape[0], mz.device
+    rows = 1 << (nv - r)
+    cur = torch.zeros((t_rows + 1, 24, rows), dtype=gl.DTYPE, device=dev)
+    if r:
+        lin_recon_fold_twin(mz, chals[r - 1], cur[:t_rows])
+    else:
+        cur[:t_rows, :, :1] = mz
+    cur[t_rows] = tables.eq_table_twin(
+        [tuple(b) for b in gl.to_int_lists(betas)], rows, dev, t_layout=True)
+    for k in range(r, nv):
+        if k == r:
+            msg = lin_recon_round_twin(cur, sets, npts, scale3)
+        else:
+            msg, cur = lin_recon_round_twin(cur, sets, npts, scale3,
+                                            chals[k - 1])
+        msgs[k], chals[k], st, _ = challenger.round_tail_twin(
+            msg, None, None, None, state, pend0 if k == 0 else chals[k - 1],
+            weighted=False)
+        state.copy_(st)
+    final = torch.empty((t_rows + 1, 24, 1), dtype=gl.DTYPE, device=dev)
+    lin_recon_fold_twin(cur, chals[nv - 1], final, scale3)
+    return final[..., 0]
+
+
 def fold_c_round_twin(c2r, eqs, r3=None):
     """A fold round's c terms as the port first ran them: the c rows'
     fold, the eq tables' pair sums and two contractions.  Returns (c, Tn,
@@ -371,23 +410,25 @@ def fold_roundr(X, Tb, mu, r3, b_small, out=None):
     return out, F
 
 
-def _lin_check(X, Tc, sets, npts, width_mult, eq_row=False):
-    """(rows, q); with eq_row, X holds one row past the multisets' rows
-    and there is no Tc."""
+def _sets_check(sets, rows, npts):
+    """Raise unless `sets` index `rows` Mz rows with one kind of constants
+    and npts is a point count the kernels take."""
+    if sets.rows != rows:
+        raise ValueError(f"multisets index {sets.rows} rows, not {rows}")
+    if (sets.sgn is None) == (sets.rings is None):
+        raise ValueError("lin sets need either +-1 signs or ring constants")
+    if not 1 <= npts <= MAX_LIN_PTS:
+        raise ValueError(f"npts {npts} outside 1..{MAX_LIN_PTS}")
+
+
+def _lin_check(X, Tc, sets, npts, width_mult):
     rows, _, width = X.shape
     if width % width_mult or width < width_mult:
         raise ValueError(f"lin width {width} not a multiple of {width_mult}")
     q = width // width_mult
     _check("X", X, (rows, 24, width))
-    if not eq_row:
-        _check("Tc", Tc, (24, q))
-    if sets.rows != rows - eq_row:
-        raise ValueError(f"multisets index {sets.rows} rows, X has {rows}"
-                         + (" with the eq row" if eq_row else ""))
-    if (sets.sgn is None) == (sets.rings is None):
-        raise ValueError("lin sets need either +-1 signs or ring constants")
-    if not 1 <= npts <= MAX_LIN_PTS:
-        raise ValueError(f"npts {npts} outside 1..{MAX_LIN_PTS}")
+    _check("Tc", Tc, (24, q))
+    _sets_check(sets, rows, npts)
     return rows, q
 
 
@@ -433,56 +474,61 @@ def lin_roundr(X, Tc, r3, sets, npts):
     return out, F
 
 
-def lin_recon_round(X, sets, npts, scale3, r3=None):
-    """A reconstruction round of the truncated lin sum-check (replaces the
-    round body of accel_dev_fs.run_fixed_phase_dev's reconstruction tail),
-    one launch: X is read as it is (r3 None) or folded at r3 first."""
-    rows, q = _lin_check(X, None, sets, npts, 2 if r3 is None else 4,
-                         eq_row=True)
+def recon_smem(rows, width, sets):
+    """Bytes of the reconstruction tail's dynamic shared memory: the table
+    (rows, 3, width) of one slot, the slot's ring constants where given,
+    the CSR arrays and the multisets' order (csrc/recon.cu
+    rc_smem_bytes)."""
+    nsets, nnz = len(sets.S), sets.idx.numel()
+    return (8 * (rows * 3 * width + (3 * nsets if sets.rings is not None
+                                     else 0))
+            + 4 * (nsets + 1 + nnz + 2 * nsets))
+
+
+def lin_recon_tail(mz, betas, scale3, state, pend0, msgs, chals, sets, r):
+    """The reconstruction tail of a truncated lin sum-check, rounds r ..
+    nv - 1 (nv = msgs.shape[0]), one launch (replaces the tail of
+    accel_dev_fs.run_fixed_phase_dev): writes msgs[r:], chals[r:] and
+    state in place and returns the final rows (t + 1, 24).  pend0, what
+    round 0 observes first, is read only when r is 0; after it round r
+    observes chals[r - 1]."""
+    t_rows = mz.shape[0]
+    nv, npts = msgs.shape[0], msgs.shape[1]
+    if not 0 <= r < nv:
+        raise ValueError(f"round {r} outside 0..{nv - 1}")
+    nr = nv - r
+    if nr > MAX_RECON_ROUNDS:
+        raise ValueError(f"{nr} reconstruction rounds, at most "
+                         f"{MAX_RECON_ROUNDS}")
+    _check("mz", mz, (t_rows, 24, 2 if r else 1))
+    _check("betas", betas, (nr, 3))
     _check("scale3", scale3, (3,))
-    if r3 is not None:
-        _check("r3", r3, (3,))
-    args = (X, scale3) + (() if r3 is None else (r3,))
+    _check("state", state, (challenger.WIDTH,))
+    _check("pend0", pend0, (pend0.shape[0],))
+    _check("msgs", msgs, (nv, npts, 24))
+    _check("chals", chals, (nv, 3))
+    if pend0.shape[0] > challenger.MAX_PENDING:
+        raise ValueError(f"{pend0.shape[0]} pending values, at most "
+                         f"{challenger.MAX_PENDING}")
+    _sets_check(sets, t_rows, npts)
+    smem = recon_smem(t_rows + 1, 1 << nr, sets)
+    if smem > MAX_RECON_SMEM:
+        raise ValueError(f"a {t_rows + 1} x 24 x {1 << nr} table takes "
+                         f"{smem} bytes of shared memory, at most "
+                         f"{MAX_RECON_SMEM}")
+    args = (mz, betas, scale3, state, pend0, msgs, chals)
     if _route(args + _sets_tensors(sets)) == "cpu":
-        return lin_recon_round_twin(X, sets, npts, scale3, r3)
-    nbx = -(-q // BLOCK)
-    out = torch.empty((npts, 24), dtype=gl.DTYPE, device=X.device)
-    partial = out if nbx == 1 else torch.empty(
-        (nbx, npts, 24), dtype=gl.DTYPE, device=X.device)
-    F = None if r3 is None else torch.empty(
-        (rows, 24, 2 * q), dtype=gl.DTYPE, device=X.device)
-    _launch("lt_lin_recon_round", _ptr(X), None if F is None else _ptr(F),
-            *_sets_args(sets), _ptr(partial), _ptr(out), q,
-            None if r3 is None else _ptr(r3), _ptr(scale3), rows - 1, npts,
-            _stream())
-    lin_recon_round.launches += 1
-    return out if r3 is None else (out, F)
-
-
-def lin_recon_fold(X, r3, out, scale3=None):
-    """out[..., :w] <- X (rows, 24, 2w) folded at r3, its last row times
-    scale3 where given, and out[..., w:] <- 0; out (rows, 24, >= w)
-    contiguous.  The fold alone
-    of the reconstruction round's kernel (its launches count there)."""
-    rows, _, width = X.shape
-    if width % 2 or width < 2:
-        raise ValueError(f"recon fold width {width} not a multiple of 2")
-    w = width // 2
-    _check("X", X, (rows, 24, width))
-    _check("r3", r3, (3,))
-    if out.dim() != 3 or out.shape[-1] < w:
-        raise ValueError(f"out: shape {tuple(out.shape)}, expected "
-                         f"({rows}, 24, >= {w})")
-    _check("out", out, (rows, 24, out.shape[-1]))
-    if scale3 is not None:
-        _check("scale3", scale3, (3,))
-    args = (X, r3, out) + (() if scale3 is None else (scale3,))
-    if _route(args) == "cpu":
-        return lin_recon_fold_twin(X, r3, out, scale3)
-    _launch("lt_lin_recon_fold", _ptr(X), _ptr(out), rows, w, out.shape[-1],
-            _ptr(r3), None if scale3 is None else _ptr(scale3), _stream())
-    lin_recon_round.launches += 1
-    return out
+        return lin_recon_tail_twin(mz, betas, scale3, state, pend0, msgs,
+                                   chals, sets, r)
+    pend = pend0 if r == 0 else chals[r - 1]
+    final = torch.empty((t_rows + 1, 24), dtype=gl.DTYPE, device=mz.device)
+    _launch("lt_lin_recon_tail", _ptr(mz), t_rows, _ptr(betas),
+            _ptr(scale3), _ptr(state), _ptr(pend), pend.shape[0], _ptr(msgs),
+            _ptr(chals), _ptr(challenger.kernel_consts(mz.device)),
+            *_sets_args(sets)[:4], len(sets.S), sets.idx.numel(), npts, nv, r,
+            _ptr(final), _stream())
+    lin_recon_tail.launches += 1
+    return final
 
 
 def _row_stride(name, x, rows, width):
@@ -575,7 +621,7 @@ TWINS = {fold_round0: fold_round0_twin, fold_roundr: fold_roundr_twin,
 
 
 def reset_launches():
-    for w in WRAPPERS + (lin_recon_round, fold_c_round):
+    for w in WRAPPERS + (lin_recon_tail, fold_c_round):
         w.launches = 0
 
 

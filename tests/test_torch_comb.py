@@ -46,6 +46,8 @@ def _pallas_ab():
 
 TRIALS = _script("fold_c_trials")
 COMB_CU = os.path.join(ROOT, "latticeum_tpu_torch", "csrc", "comb.cu")
+RECON_TRIALS = _script("recon_trials")
+RECON_CU = os.path.join(ROOT, "latticeum_tpu_torch", "csrc", "recon.cu")
 
 
 def rnd(rng, *shape):
@@ -368,19 +370,17 @@ def test_lin_recon_round_twin_matches_python_int_oracle(kind, fold):
     X = rnd(rng, 7, 24, (4 if fold else 2) * q)
     X[2] = P - 1
     scale = tuple(int(v) for v in rnd(rng, 3))
-    comb.reset_launches()
     if fold:
         r3 = tuple(int(v) for v in rnd(rng, 3))
-        S_t, F = comb.lin_recon_round(tt(X), ls, npts, tt(np.array(
+        S_t, F = comb.lin_recon_round_twin(tt(X), ls, npts, tt(np.array(
             scale, np.uint64)), tt(np.array(r3, np.uint64)))
         cur = fold_oracle(X, r3)
         assert gl.to_int_lists(F) == cur.tolist()
     else:
-        S_t = comb.lin_recon_round(tt(X), ls, npts,
-                                   tt(np.array(scale, np.uint64)))
+        S_t = comb.lin_recon_round_twin(tt(X), ls, npts,
+                                        tt(np.array(scale, np.uint64)))
         cur = X
     assert gl.to_int_lists(S_t) == recon_oracle(cur, S, consts, npts, scale)
-    assert comb.lin_recon_round.launches == 0
 
 
 @pytest.mark.parametrize("scaled", [False, True])
@@ -391,9 +391,9 @@ def test_lin_recon_fold_twin_matches_python_int_oracle(scaled):
     X, r3 = rnd(rng, 4, 24, 4), tuple(int(v) for v in rnd(rng, 3))
     scale = tuple(int(v) for v in rnd(rng, 3)) if scaled else None
     out = torch.full((4, 24, 5), 7, dtype=torch.int64)
-    comb.lin_recon_fold(tt(X), tt(np.array(r3, np.uint64)), out,
-                        None if scale is None else tt(np.array(scale,
-                                                               np.uint64)))
+    comb.lin_recon_fold_twin(tt(X), tt(np.array(r3, np.uint64)), out,
+                             None if scale is None else tt(np.array(
+                                 scale, np.uint64)))
     want = fold_oracle(X, r3)
     if scaled:
         for s in range(8):
@@ -405,24 +405,126 @@ def test_lin_recon_fold_twin_matches_python_int_oracle(scaled):
     assert not out[..., 2:].any()
 
 
+def old_lin_reconstruct(mz, nv, r, degree, sets, betas, scale, state,
+                        pend0, msgs, chals):
+    """The reconstruction tail as accel_rounds._lin_reconstruct ran it
+    before lin_recon_tail: nine calls of the wrappers (their CPU routes),
+    the fold, the eq table, each round and its round tail, the final
+    fold."""
+    from latticeum_tpu_torch.crypto import challenger
+    from latticeum_tpu_torch.zkvm import tables
+    t_rows, dev = mz.shape[0], mz.device
+    rows = 1 << (nv - r)
+    shape = (t_rows + 1, 24, rows)
+    if r:
+        cur = torch.empty(shape, dtype=gl.DTYPE, device=dev)
+        comb.lin_recon_fold_twin(mz, chals[r - 1], cur[:t_rows])
+    else:
+        cur = torch.zeros(shape, dtype=gl.DTYPE, device=dev)
+        cur[:t_rows, :, :1] = mz
+    tables.eq_table(betas, rows, dev, t_layout=True, out=cur[t_rows])
+    for k in range(r, nv):
+        if k == r:
+            msg = comb.lin_recon_round_twin(cur, sets, degree + 1, scale)
+        else:
+            msg, cur = comb.lin_recon_round_twin(cur, sets, degree + 1,
+                                                 scale, chals[k - 1])
+        challenger.round_tail(msg, None, None, None, state,
+                              pend0 if k == 0 else chals[k - 1], msgs,
+                              chals, k, weighted=False)
+    final = torch.empty((t_rows + 1, 24, 1), dtype=gl.DTYPE, device=dev)
+    comb.lin_recon_fold_twin(cur, chals[nv - 1], final, scale)
+    return final[..., 0]
+
+
+def tail_case(rng, S, signs, kind, t_rows, nv, r, npts, npend=5):
+    """Random inputs of a reconstruction tail (rows of p - 1 among them):
+    (mz, host betas, betas, scale, state, pend0, msgs, chals, sets)."""
+    sets = (comb.lin_sets(S, signs, t_rows, "cpu") if kind == "signs"
+            else comb.lin_sets_general(S, rings(rng, len(S)), t_rows, "cpu"))
+    mz = rnd(rng, t_rows, 24, 2 if r else 1)
+    mz[0] = P - 1
+    betas = [tuple(int(v) for v in rnd(rng, 3)) for _ in range(nv - r)]
+    betas[-1] = (P - 1,) * 3
+    chals = rnd(rng, nv, 3)
+    return (tt(mz), betas, tt(np.array(betas, np.uint64)), tt(rnd(rng, 3)),
+            tt(rnd(rng, 16)), tt(rnd(rng, npend)),
+            torch.zeros((nv, npts, 24), dtype=torch.int64), tt(chals), sets)
+
+
+@pytest.mark.parametrize("rounds,npts,kind,r,t_rows", [
+    (1, 1, "signs", 3, 9), (2, 12, "rings", 0, 9), (3, 9, "signs", 3, 9),
+    (3, 9, "rings", 14, 9), (4, 5, "signs", 0, 9), (4, 7, "rings", 2, 9),
+    (3, 9, "signs", 14, 125)])
+def test_lin_recon_tail_twin_matches_the_old_sequence(rounds, npts, kind, r,
+                                                      t_rows):
+    """The tail's twin (what the wrapper runs on CPU tensors) against the
+    nine calls it replaced, bit for bit: messages, challenges, challenger
+    state and final rows, for 1 ... 4 rounds (tables of 2 ... 16
+    columns), the first round at r = 0 (mz one column wide) or later (two
+    columns, folded at chals[r - 1]), +-1 signs and ring constants, 1 ...
+    12 points, a random scale, rows and a beta of p - 1; the last case
+    the zkVM's 125 rows and 52 multisets at 9 points."""
+    from latticeum_tpu_torch.parallel import lin_mesh
+    S, signs = SETS7 if t_rows == 9 else lin_mesh._zkvm_S_c()[:2]
+    rng = np.random.default_rng(100 + rounds + npts + r)
+    nv = r + rounds
+    mz, host_b, betas, scale, state, pend0, msgs, chals, sets = tail_case(
+        rng, S, signs, kind, t_rows, nv, r, npts)
+    old = [x.clone() for x in (state, msgs, chals)]
+    want = old_lin_reconstruct(mz, nv, r, npts - 1, sets, host_b, scale,
+                               *old[:1], pend0, *old[1:])
+    comb.reset_launches()
+    got = comb.lin_recon_tail(mz, betas, scale, state, pend0, msgs, chals,
+                              sets, r)
+    assert torch.equal(got, want)
+    for a, b in zip((state, msgs, chals), old):
+        assert torch.equal(a, b)
+    assert comb.lin_recon_tail.launches == 0
+
+
 def test_lin_recon_wrappers_validate_their_arguments():
-    S, signs = SETS
-    ls = comb.lin_sets(S, signs, 6, "cpu")
+    S, signs = SETS7
+    rng = np.random.default_rng(96)
+    mz, _, betas, scale, state, pend0, msgs, chals, sets = tail_case(
+        rng, S, signs, "signs", 9, 6, 3, 5)
     z = lambda *s: torch.zeros(s, dtype=torch.int64)  # noqa: E731
-    with pytest.raises(ValueError):        # no eq row
-        comb.lin_recon_round(z(6, 24, 4), ls, 3, z(3))
-    with pytest.raises(ValueError):        # odd width
-        comb.lin_recon_round(z(7, 24, 3), ls, 3, z(3))
-    with pytest.raises(ValueError):        # a fold needs 4q columns
-        comb.lin_recon_round(z(7, 24, 6), ls, 3, z(3), z(3))
+
+    def call(**kw):
+        args = dict(mz=mz, betas=betas, scale3=scale, state=state,
+                    pend0=pend0, msgs=msgs, chals=chals, sets=sets, r=3)
+        args.update(kw)
+        return comb.lin_recon_tail(**args)
+    call()
+    with pytest.raises(ValueError):        # mz one column wide after r = 0
+        call(mz=z(9, 24, 1))
+    with pytest.raises(ValueError):        # and not two at r = 0
+        call(r=0, betas=z(4, 3), msgs=z(4, 5, 24), chals=z(4, 3))
+    with pytest.raises(ValueError):        # one beta a remaining round
+        call(betas=z(2, 3))
+    with pytest.raises(ValueError):        # the multisets' rows
+        call(mz=z(8, 24, 2))
     with pytest.raises(ValueError):        # more points than instantiated
-        comb.lin_recon_round(z(7, 24, 4), ls, comb.MAX_LIN_PTS + 1, z(3))
+        call(msgs=z(6, comb.MAX_LIN_PTS + 1, 24))
+    with pytest.raises(ValueError):        # more rounds than the table takes
+        call(r=0, mz=z(9, 24, 1), betas=z(6, 3))
+    with pytest.raises(ValueError):        # no round left
+        call(r=6, betas=z(0, 3))
     with pytest.raises(ValueError):
-        comb.lin_recon_round(z(7, 24, 4), ls, 3, z(2))
-    with pytest.raises(ValueError):        # out narrower than the fold
-        comb.lin_recon_fold(z(7, 24, 4), z(3), z(7, 24, 1))
+        call(scale3=z(2))
     with pytest.raises(ValueError):
-        comb.lin_recon_fold(z(7, 24, 3), z(3), z(7, 24, 2))
+        call(state=z(15))
+    with pytest.raises(ValueError):        # more pending values than taken
+        call(pend0=z(12))
+    with pytest.raises(ValueError):        # chals of another round count
+        call(chals=z(5, 3))
+    with pytest.raises(ValueError):        # the table outgrows shared memory
+        big = comb.lin_sets(((0,),) * 2 + tuple((j,) for j in range(1, 1200)),
+                            (1,) * 1201, 1200, "cpu")
+        call(mz=z(1200, 24, 2), sets=big, msgs=z(8, 5, 24), chals=z(8, 3),
+             betas=z(5, 3))
+    with pytest.raises(TypeError):
+        call(scale3=scale.to(torch.int32))
 
 
 def test_recon_eq_table_is_the_host_doubling():
@@ -445,22 +547,26 @@ def test_recon_eq_table_is_the_host_doubling():
             assert np.array_equal(gl.to_u64(got), want)
 
 
-def _lin_sumcheck_case(seed, nv, n0, kind):
+def _lin_sumcheck_case(seed, nv, n0, kind, S=((0, 1, 2), (1,), (2, 2)),
+                       signs=(1, -1, 1), recon_betas=None):
     """A truncated lin sum-check (its reconstruction rounds included) on
     the host (sumcheck.prove with the eq factored) and through the port's
-    chained runner, with +-1 signs or ring constants."""
+    chained runner, with +-1 signs or ring constants; the port's run
+    takes `recon_betas` for its reconstruction rounds where given (the
+    host's does not)."""
     from latticeum_tpu.crypto.transcript import Transcript
     from latticeum_tpu.field import goldilocks as gl_ref
     from latticeum_tpu.nifs import linearization as lin
     from latticeum_tpu.poly import mle, sumcheck
     from latticeum_tpu.zkvm.accel_t import bitrev_indices
     from latticeum_tpu_torch.zkvm import accel_rounds
-    S, signs = [(0, 1, 2), (1,), (2, 2)], (1, -1, 1)
+    t_rows = max(j for s_ in S for j in s_) + 1
+    degree = max(len(s_) for s_ in S) + 1
     rng = np.random.default_rng(seed)
     consts = ([H.ntt_from_u64(1 if x > 0 else P - 1) for x in signs]
               if kind == "signs" else rings(rng, len(S)))
     beta = [tuple(int(v) for v in rnd(rng, 3)) for _ in range(nv)]
-    mz = rnd(rng, 3, n0, 24)
+    mz = rnd(rng, t_rows, n0, 24)
     with B.numpy_mode():
         eq = mle.build_eq_table(beta, max_rows=n0)
         g = (np.concatenate([limbs(mz)[0], np.asarray(eq[0])[None]]),
@@ -468,14 +574,15 @@ def _lin_sumcheck_case(seed, nv, n0, kind):
         c = gl_ref.from_int(np.array(consts, dtype=object))
         two = lin.make_comb_fn2(S)
         th = Transcript(record_samples=True)
-        host = sumcheck.prove(th, g, nv, 4, lambda v: two(v, c),
-                              eq_info=(beta, 3))
+        host = sumcheck.prove(th, g, nv, degree, lambda v: two(v, c),
+                              eq_info=(beta, t_rows))
     brev = torch.from_numpy(bitrev_indices((n0 - 1).bit_length()))
     g_t = gl.from_limbs(g).transpose(1, 2)[..., brev].contiguous()
-    sets = (comb.lin_sets(S, signs, 3, "cpu") if kind == "signs"
-            else comb.lin_sets_general(S, consts, 3, "cpu"))
+    sets = (comb.lin_sets(S, signs, t_rows, "cpu") if kind == "signs"
+            else comb.lin_sets_general(S, consts, t_rows, "cpu"))
     td = Transcript(record_samples=True)
-    port = accel_rounds.run_lin_rounds_factored(td, g_t, nv, 4, sets, beta)
+    port = accel_rounds.run_lin_rounds_factored(td, g_t, nv, degree, sets,
+                                                beta, recon_betas)
     final = ints(host[2])[:, 0]
     return ((host[0], host[1], final.tolist(), th.export_for_device(),
              th.samples),
@@ -493,50 +600,125 @@ def test_lin_reconstruct_matches_host_sumcheck(nv, n0, kind):
     assert port == host
 
 
+def _count_tails(monkeypatch):
+    """The first round r of each comb.lin_recon_tail call the runner makes
+    (CPU routes included, which count no launch)."""
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    calls = []
+    real = comb.lin_recon_tail
+
+    def counted(*args, **kwargs):
+        calls.append(args[-1])
+        return real(*args, **kwargs)
+    monkeypatch.setattr(accel_rounds.comb, "lin_recon_tail", counted)
+    return calls
+
+
+@pytest.mark.parametrize("nv,n0,kind", [(6, 8, "signs"), (6, 8, "rings"),
+                                        (5, 1, "signs")])
+def test_lin_recon_tail_at_the_zkvm_shape_matches_host_sumcheck(
+        nv, n0, kind, monkeypatch):
+    """The port's truncated lin sum-check with the zkVM's 125 Mz rows and
+    52 multisets (degree 8, 9 message points) against the JAX package's
+    numpy host sum-check (sumcheck.prove with eq_info): proof,
+    challenges, finals, transcript state and samples.  At n0 = 8, 3
+    factored rounds, then the main path's 3 reconstruction rounds in one
+    comb.lin_recon_tail call; at n0 = 1 all 5 rounds in it."""
+    from latticeum_tpu_torch.parallel import lin_mesh
+    S, signs, _ = lin_mesh._zkvm_S_c()
+    calls = _count_tails(monkeypatch)
+    host, port = _lin_sumcheck_case(nv + n0, nv, n0, kind, S, signs)
+    assert port == host
+    assert calls == [3 if n0 == 8 else 0]
+
+
+@pytest.mark.parametrize("nv,n0,kind", [(6, 8, "signs"), (6, 8, "rings"),
+                                        (4, 1, "rings")])
+def test_recon_betas_route_through_the_tail_matches_the_old_route(
+        nv, n0, kind, monkeypatch):
+    """The C.h9 replay's route (recon_betas: another proof's betas in the
+    reconstruction rounds, scaled by _eqf_product of them over the
+    factored rounds' challenges) through comb.lin_recon_tail gives the
+    proof, challenges, finals and transcript of the same run through the
+    nine calls the tail replaced; and both differ from the host sum-check,
+    which uses the proof's own betas."""
+    from latticeum_tpu_torch.zkvm import accel_rounds
+    rng = np.random.default_rng(nv + n0 + 7)
+    stale = [tuple(int(v) for v in rnd(rng, 3)) for _ in range(nv)]
+    calls = _count_tails(monkeypatch)
+    host, tail = _lin_sumcheck_case(nv + n0, nv, n0, kind,
+                                    recon_betas=stale)
+    assert calls == [accel_rounds._factored_rounds(n0, nv)]
+
+    def old(mz, r, sets, betas, scale, state, pend0, msgs, chals):
+        return old_lin_reconstruct(mz, msgs.shape[0], r, msgs.shape[1] - 1,
+                                   sets, betas, scale, state, pend0, msgs,
+                                   chals)
+    monkeypatch.setattr(accel_rounds, "_lin_reconstruct", old)
+    _, before = _lin_sumcheck_case(nv + n0, nv, n0, kind, recon_betas=stale)
+    assert len(calls) == 1
+    assert tail == before
+    assert tail[0] != host[0]
+
+
+@pytest.mark.parametrize("name", list(RECON_TRIALS.VARIANTS))
+def test_recon_trials_variant_rewrites_recon_cu(name):
+    """scripts/recon_trials.py builds each design variant from a copy of
+    csrc/recon.cu: each rewrite finds its text exactly once, and the
+    kernel's own variant is the source as it is."""
+    with open(RECON_CU) as f:
+        src = f.read()
+    rewrites, _ = RECON_TRIALS.VARIANTS[name]
+    out = RECON_TRIALS.variant_source(src, rewrites)
+    assert (out == src) == (not rewrites)
+    for _, new in rewrites:
+        assert new in out
+
+
+def test_recon_trials_rewrite_must_find_its_text():
+    with open(RECON_CU) as f:
+        src = f.read()
+    with pytest.raises(RuntimeError):
+        RECON_TRIALS.variant_source(src, (("no such line", "x"),))
+
+
 @pytest.mark.cuda
-def test_cuda_lin_recon_round_matches_twin():
-    """The reconstruction kernel against its twin on the card at every
-    point count 1 ... 12, first round and folded, signs and rings, at 1,
-    2, 4 columns (the zkVM's widths), 3 (lanes left idle) and 200 (several
-    blocks), with rows of p - 1; the fold alone, scaled and not."""
+def test_cuda_lin_recon_tail_matches_twin():
+    """The reconstruction tail's kernel against its twin on the card at
+    every point count 1 ... 12, each with signs and with rings, over 1 ...
+    5 rounds (tables of 2 ... 32 columns) in turn, the first round at r =
+    0 and after factored rounds in turn, with rows and a beta of p - 1,
+    and at the zkVM's 125 rows and 52 multisets: messages, challenges,
+    state and final rows.  (The twin's challenger takes about a second a
+    round on the card, so the cases are dealt, not crossed.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from latticeum_tpu_torch.parallel import lin_mesh
     rng = np.random.default_rng(95)
-    dev = "cuda"
-
-    def d(u):
-        return tt(u).to(dev)
     S, signs = SETS7
+    zS, zsigns, zt = lin_mesh._zkvm_S_c()
+    cases = [(S, signs, 9, kind, 1 + (npts + (kind == "rings")) %
+              comb.MAX_RECON_ROUNDS, npts, 3 * (npts % 2))
+             for kind in ("signs", "rings") for npts in range(1, 13)]
+    cases += [(zS, zsigns, zt, kind, 3, 9, 14) for kind in ("signs", "rings")]
     comb.reset_launches()
-    calls = 0
-    for ls in (comb.lin_sets(S, signs, 9, dev),
-               comb.lin_sets_general(S, rings(rng, len(S)), 9, dev)):
-        for npts in range(1, comb.MAX_LIN_PTS + 1):
-            for q in (1, 2, 3, 4, 200):
-                for fold in (False, True):
-                    X = rnd(rng, 10, 24, (4 if fold else 2) * q)
-                    X[0] = P - 1
-                    X[-1, :, :q] = P - 1
-                    args = (d(X), ls, npts, d(rnd(rng, 3)))
-                    if fold:
-                        args += (d(rnd(rng, 3)),)
-                    got = comb.lin_recon_round(*args)
-                    want = comb.lin_recon_round_twin(*args)
-                    calls += 1
-                    for a, b in zip(got if fold else (got,),
-                                    want if fold else (want,)):
-                        assert torch.equal(a, b), (npts, q, fold)
-    for scale in (None, d(rnd(rng, 3))):
-        X, r3 = rnd(rng, 10, 24, 2), d(rnd(rng, 3))
-        X[3] = P - 1
-        X = d(X)
-        got = torch.zeros((10, 24, 8), dtype=torch.int64, device=dev)
-        want = got.clone()
-        comb.lin_recon_fold(X, r3, got, scale)
-        comb.lin_recon_fold_twin(X, r3, want, scale)
-        calls += 1
-        assert torch.equal(got, want)
-    assert comb.lin_recon_round.launches == calls
+    for S_, signs_, t_rows, kind, rounds, npts, r in cases:
+        x = tail_case(rng, S_, signs_, kind, t_rows, r + rounds, r, npts)
+        mz, _, betas, scale, state, pend0, msgs, chals, sets = x
+        sets = (comb.lin_sets(S_, signs_, t_rows, "cuda") if kind == "signs"
+                else comb.lin_sets_general(S_, gl.to_int_lists(
+                    sets.rings), t_rows, "cuda"))
+        dev = [t.cuda() for t in (mz, betas, scale, state, pend0, msgs,
+                                  chals)]
+        twin = [t.clone() for t in dev]
+        got = comb.lin_recon_tail(*dev, sets, r)
+        want = comb.lin_recon_tail_twin(*twin, sets, r)
+        torch.cuda.synchronize()
+        where = (t_rows, kind, rounds, npts, r)
+        assert torch.equal(got, want), where
+        for a, b in zip(dev[3:], twin[3:]):
+            assert torch.equal(a, b), where
+    assert comb.lin_recon_tail.launches == len(cases)
 
 
 @pytest.mark.cuda

@@ -10,11 +10,14 @@ function-level imports included."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+
+from latticeum_tpu_torch import kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = Path(ROOT) / "latticeum_tpu_torch"
@@ -100,3 +103,22 @@ assert p.dn is not None and p.dn.device.type == "cpu"
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+CUDA_SOURCES = sorted((PORT / "csrc").glob("*.cu"))
+
+
+@pytest.mark.parametrize("source", CUDA_SOURCES,
+                         ids=[p.name for p in CUDA_SOURCES])
+def test_every_cuda_source_has_a_covered_wrapper_module(source):
+    """Each CUDA source of the port is built (kernels.SOURCES), and each of
+    its C entry points is launched by name from a port module that the
+    tests above import with jax blocked and scan."""
+    assert source.name in kernels.SOURCES
+    entries = re.findall(r"^int (lt_\w+)\(", source.read_text(), re.M)
+    assert entries, source.name
+    for name in entries:
+        callers = [p for p in SOURCES if p.name != "kernels.py"
+                   and f'"{name}"' in p.read_text()]
+        assert any(p.is_relative_to(PORT) for p in callers), \
+            f"{name} ({source.name}) is launched by no port module"

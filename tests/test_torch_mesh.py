@@ -62,7 +62,7 @@ def references(S_c):
     sum-check's on the same MLEs."""
     out = {}
     for nv, K in work.FOLD_CASES:
-        inp = fold_mesh.fold_inputs(nv, K)
+        inp = fold_mesh.fold_inputs(nv, K, device="cpu")
         port = work.record(*fold_mesh.run_fold_sumcheck(inp))
         g = std_limbs(torch.cat([inp["head"], inp["tail"]]))
         with B.numpy_mode():
@@ -72,7 +72,7 @@ def references(S_c):
         out["fold", nv, K] = port, host_record(th, ph, ch, fh)
     S, signs, t_rows = S_c
     for nv, n0 in work.LIN_CASES:
-        inp = lin_mesh.lin_inputs(nv, n0, S_c)
+        inp = lin_mesh.lin_inputs(nv, n0, S_c, device="cpu")
         port = work.record(*lin_mesh.run_lin_sumcheck(inp))
         with B.numpy_mode():
             c = gl_ref.from_int(np.array(
@@ -146,7 +146,7 @@ def test_all_reduce_is_exact_mod_p(runs, world):
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_ajtai_commit_matches_jax(runs, world):
     results, _ = runs
-    rows, f = fold_mesh.ajtai_inputs(*work.AJTAI)
+    rows, f = fold_mesh.ajtai_inputs(*work.AJTAI, device="cpu")
     with B.numpy_mode():
         total = gl_ref.sum_axis(limbs(f), axis=0)
         want = rq_ref.ntt_mul(limbs(rows), total)
@@ -158,7 +158,7 @@ def test_sharded_ajtai_commit_matches_jax(runs, world):
 @pytest.mark.parametrize("world", WORLDS)
 def test_slots_crt_exchange_matches_jax(runs, world):
     results, _ = runs
-    x = lin_mesh.crt_batch(work.CRT_BATCH)
+    x = lin_mesh.crt_batch(work.CRT_BATCH, device="cpu")
     with B.numpy_mode():
         full = gl_ref.to_int(rq_ref.crt(limbs(x))).astype(np.uint64)
     rows, slots = M.mesh_shape(world)
@@ -208,13 +208,41 @@ def test_full_fold_global_over_env_ranks_matches_one_process(runs):
     """Two ranks joined through MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE
     agree with each other and with the single-process run."""
     results, _ = runs
-    proof, chals, final, state, _ = multihost.full_fold_global(None, *GLOBAL)
+    proof, chals, final, state, _ = multihost.full_fold_global(
+        None, *GLOBAL, device="cpu")
     single = (proof, chals, gl.to_int_lists(final), state)
-    round0 = multihost.fold_round_global(None, *GLOBAL)
+    round0 = multihost.fold_round_global(None, *GLOBAL, device="cpu")
     for res in results["env"]:
         assert res["mesh"] == ((2, 1), ("rows", "slots"))
         assert res["fold"] == single
         assert res["round0"] == round0
+
+
+# every entry point of parallel/ that takes a device, called without one
+ENTRY_POINTS = {
+    "fold_inputs": lambda: fold_mesh.fold_inputs(3, 1),
+    "ajtai_inputs": lambda: fold_mesh.ajtai_inputs(8, 4),
+    "sharded_vs_single": lambda: fold_mesh.sharded_vs_single(None, 8, 1),
+    "sharded_dryrun": lambda: fold_mesh.sharded_dryrun(None, 8, 1),
+    "lin_inputs": lambda: lin_mesh.lin_inputs(2),
+    "sharded_lin_vs_single": lambda: lin_mesh.sharded_lin_vs_single(None, 2),
+    "crt_batch": lambda: lin_mesh.crt_batch(4),
+    "global_mesh": lambda: multihost.global_mesh(),
+    "fold_round_global": lambda: multihost.fold_round_global(None, 8, 1),
+    "full_fold_global": lambda: multihost.full_fold_global(None, 8, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_defaults_to_the_card(name, monkeypatch):
+    """Without a device argument each entry point runs on the card; where
+    torch finds none it raises, and nothing runs on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(torch, "Generator", lambda *a, **k: ran.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+    assert not ran
 
 
 def test_init_distributed_without_launcher_is_a_no_op(monkeypatch):
