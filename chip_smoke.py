@@ -66,6 +66,16 @@ Phases (each prints its own lines; any failure exits non-zero):
               read where they lie) and dec's row-constant commits (kappa
               32 rings by K - 1 = 14 totals) and y0, each timed by a CUDA
               graph beside its bound;
+     decompose  the witness pipelines' digit kernels (csrc/decompose.cu)
+              against their twins, bit for bit, with edge values in the
+              first words (0, 1, p - 1, (p -/+ 1) / 2, low digits of b/2
+              and b/2 + 1 on both signs, values beyond b^count / 2):
+              balanced_digits as commit_z's gadget digits (19,763 rings,
+              b = 2^15, L = 5) and dec's k vectors (98,815 rings, b = 2,
+              K = 15), digit_recompose as dec's gadget recomposition (15 x
+              98,815 rings) and the fold's witness_from_f, row_sums as
+              dec's commit sums (14 x 98,815) and commit's (98,815); each
+              timed by a CUDA graph beside its bound;
   6. claims   the digit-plane kernels (digit_split, plane_recombine) against
               their twins at edge shapes (several chunks, every padding) and
               at the four production shapes of the evaluation claims (dec u,
@@ -124,10 +134,12 @@ Phases (each prints its own lines; any failure exits non-zero):
               factored lin round, ring_mac's sum mode three times a fold
               step (f0, and dec's y0 twice) and its product mode,
               ring_mul_each, twice a fold step (dec's commits) and once a
-              lin sum-check (the commit of its witness), and ring_contract
-              called; each prove_vm's tree time and its parts; every lin
-              and fold
-              sum-check made exactly one device -> host copy (its lin
+              lin sum-check (the commit of its witness), balanced_digits
+              once a build_witness and a dec_prove, digit_recompose once a
+              dec_prove and a witness_from_f(_coeff), row_sums once a
+              commit and a dec_prove (the calls counted), their twins
+              never, and ring_contract called; each prove_vm's tree time
+              and its parts; every lin and fold sum-check made exactly one device -> host copy (its lin
               reconstruction rounds included) and, under
               torch.cuda.set_sync_debug_mode("error"), no other
               synchronizing call;
@@ -187,7 +199,10 @@ gathered counted once and only the head's non-empty rows read back;
 fold_c_round from its pair sums, its four unreduced Fq3 products a column
 and its folds, beside its bytes; ring_mac from its 9 multiply-adds a
 term and slot (unreduced), a reduction an output and the constants' w c1
-and w c2, beside its bytes (each term read once, the batches not copied).
+and w c2, beside its bytes (each term read once, the batches not copied);
+balanced_digits from BALANCED_DIGIT_OPS integer operations a digit,
+digit_recompose from L - 1 gl_mul and gl_add an output at the probes'
+SASS, row_sums from ROW_SUM_OPS a word, each beside its bytes.
 """
 
 import contextlib
@@ -330,7 +345,10 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "lin_recon_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
                "coo_matvec": "latticeum_tpu/zkvm/accel.py:117",
                "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403",
-               "ring_mac": "latticeum_tpu/zkvm/accel_nifs.py:796"}
+               "ring_mac": "latticeum_tpu/zkvm/accel_nifs.py:796",
+               "balanced_digits": "latticeum_tpu/ring/decompose.py:49",
+               "digit_recompose": "latticeum_tpu/ring/decompose.py:77",
+               "row_sums": "latticeum_tpu/zkvm/accel_nifs.py:510"}
 P8_SOURCE = "latticeum_tpu_torch/csrc/poseidon2.cu"
 MXU_SOURCE = "latticeum_tpu_torch/csrc/mxu.cu"
 CH_SOURCE = "latticeum_tpu_torch/csrc/challenger.cu"
@@ -340,6 +358,7 @@ COMB_SOURCE = "latticeum_tpu_torch/csrc/comb.cu"
 COO_SOURCE = "latticeum_tpu_torch/csrc/coo.cu"
 RINGMAC_SOURCE = "latticeum_tpu_torch/csrc/ringmac.cu"
 RECON_SOURCE = "latticeum_tpu_torch/csrc/recon.cu"
+DECOMPOSE_SOURCE = "latticeum_tpu_torch/csrc/decompose.cu"
 # A fold sum-check on the main path makes fewer device launches than this
 # (kernels and copies, counted by torch.profiler): a round's fold_c_round,
 # tail comb (two launches) and round_tail, the end, the uploads and fetch.
@@ -363,6 +382,13 @@ RECOMBINE_OPS = {"mul": 34, "add": 36, "mul_w": 1}
 # inverse 36 multiplies, 12 adds, 24 subtracts.
 CRT_OPS = {"crt": {"mul": 48, "add": 48, "sub": 37},
            "icrt": {"mul": 72, "add": 36, "sub": 49}}
+# One balanced digit (ring/decompose.py decompose_balanced): the low bits
+# taken, compared with b/2, b - r selected, the shift and carry added, the
+# sign's xor, its negation and selection: 8 integer operations, no
+# multiply.  One word of a row sum: a 64-bit add carried into 192 bits,
+# 3 integer operations.
+BALANCED_DIGIT_OPS = 8
+ROW_SUM_OPS = 3
 
 
 def log(msg):
@@ -399,8 +425,9 @@ def main():
     from latticeum_tpu_torch.crypto import challenger, poseidon2
     from latticeum_tpu_torch.field import goldilocks as gl, mxu
     from latticeum_tpu_torch.host.crypto import native
-    from latticeum_tpu_torch.ring import rq
-    from latticeum_tpu_torch.zkvm import accel, accel_rounds, comb, tables
+    from latticeum_tpu_torch.ring import decompose, rq
+    from latticeum_tpu_torch.zkvm import (accel, accel_nifs, accel_rounds,
+                                          comb, tables)
 
     dev = torch.device("cuda")
     card, rate, mix, perm8_sass, perm16_sass, lat = device_and_build(
@@ -437,6 +464,9 @@ def main():
     records += ring_checks(torch, np, gl, rq, dev, rate, mix)
     records += ringmac_checks(torch, np, gl, rq, prover, dev, rate, mix)
 
+    phase("decompose")
+    records += decompose_checks(torch, np, gl, prover, dev, rate, mix)
+
     phase("claims")
     records += claims_checks(torch, np, gl, mxu, prover, dev, rate, mix)
 
@@ -469,9 +499,13 @@ def main():
     tables.reset_launches()
     rq.reset_launches()
     accel.coo_matvec.launches = 0
+    decompose.reset_launches()
+    accel_nifs.row_sums.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    with one_fetch_per_sumcheck(torch) as sumchecks:
+    with one_fetch_per_sumcheck(torch) as sumchecks, \
+            counted_calls(prover.dn, WITNESS_CALLS) as calls, \
+            counted_calls(decompose, DIGIT_TWINS) as twins:
         xs = prove(prover, new_vm_1mb().load_elf_data(xorshift_guest(64)), 3,
                    "xorshift_guest(64)", torch, checkpoint_dir=ckdir,
                    checkpoint_every=2)
@@ -488,6 +522,9 @@ def main():
     launches["coo_matvec"] = accel.coo_matvec.launches
     launches["fold_c_round"] = comb.fold_c_round.launches
     launches["ring_mac"] = rq.ring_mac.launches + rq.ring_mul_each.launches
+    launches["balanced_digits"] = decompose.decompose_balanced.launches
+    launches["digit_recompose"] = decompose.recompose.launches
+    launches["row_sums"] = accel_nifs.row_sums.launches
     contractions = mxu.ring_contract.calls
     log(f"sum-checks on the main path: {sumchecks['lin']} lin, "
         f"{sumchecks['fold']} fold, each with exactly one device -> host "
@@ -542,6 +579,7 @@ def main():
         fail(f"fold_c_round launched {launches['fold_c_round']} times, not "
              f"{want_fc} (a round and the end a fold sum-check, a pair sum "
              "a factored lin round)")
+    check_digit_launches(launches, calls, twins)
     t0 = time.time()
     for i, (acc, cm_i, proof, folded) in enumerate(folds, start=1):
         if prover.verify_fold(acc, cm_i, proof) != folded:
@@ -1980,6 +2018,148 @@ def fold_c_two_streams(torch, np, gl, comb, m, rnd):
     log("fold_c_round: two launches in flight on two streams of low and "
         "high priority, 8 times, each bit-exact with its twin")
     return 0
+
+
+def decompose_checks(torch, np, gl, prover, dev, rate, mix):
+    """The witness pipelines' digit kernels (csrc/decompose.cu) against
+    their twins on the card, bit for bit, at the main path's shapes:
+    balanced_digits as commit_z's gadget digits (nw rings, b = B, L) and
+    as dec's k vectors (nf rings, b = B_SMALL, K); digit_recompose as
+    dec's gadget recomposition (K x nf rings) and the fold's
+    witness_from_f (nf); row_sums as dec's commit sums (K - 1 witnesses of
+    nf rings) and commit's (one).  The first words of every input are
+    edge values: 0, 1, p - 1, (p -/+ 1) / 2, low digits of b/2 and b/2 + 1
+    on both signs, and values beyond b^count / 2 (their rest dropped).
+    Each timed by a CUDA graph of 20 beside its bound, each twin by CUDA
+    events over one call.  Returns the records at dec's shapes."""
+    from latticeum_tpu_torch.ring import decompose as dc
+    from latticeum_tpu_torch.zkvm import accel_nifs
+    p = prover.params
+    nw = prover.layout.w_size
+    nf = nw * p.L
+    rng = np.random.default_rng(29)
+
+    def rings(b, count, *shape):
+        u = rng.integers(0, gl.P, shape + (24,), dtype=np.uint64)
+        half, top = b // 2, b ** count // 2
+        edges = [0, 1, gl.P - 1, (gl.P - 1) // 2, (gl.P + 1) // 2, half,
+                 half + 1, b + half, b + half + 1, gl.P - half,
+                 gl.P - half - 1, gl.P - b - half - 1]
+        edges += [v for x in (top - 1, top, top + 1) if x < gl.P
+                  for v in (x, gl.P - x)]
+        flat = u.reshape(-1)
+        flat[:len(edges)] = np.array(edges, np.uint64)
+        u.reshape(-1, 24)[1] = gl.P - 1
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    def digit_work(n, count):
+        ops = n * count * BALANCED_DIGIT_OPS
+        return {"fma": 0, "alu": ops, "total": ops}
+
+    w = rings(p.B, p.L, nw)
+    fc = rings(p.B_SMALL, p.K, nf)
+    fb = rings(p.B, p.L, p.K, nf)
+    sum_ops = (p.K - 1) * nf * 24 * ROW_SUM_OPS
+    horner = pipes({"mul": p.L - 1, "add": p.L - 1}, mix)
+    cases = (
+        ("balanced_digits", "commit_z's gadget digits", (nw, 24),
+         lambda: dc.gadget_decompose(w, p.B, p.L),
+         lambda: torch.movedim(dc.decompose_balanced_twin(w, p.B, p.L), -1,
+                               -2).reshape(nf, 24),
+         8 * 24 * nw * (1 + p.L), digit_work(24 * nw, p.L)),
+        ("balanced_digits", "dec's k vectors", (nf, 24),
+         lambda: dc.decompose_vec_into_k_vecs(fc, p.B_SMALL, p.K),
+         lambda: torch.movedim(dc.decompose_balanced_twin(
+             fc, p.B_SMALL, p.K), -1, 0),
+         8 * 24 * nf * (1 + p.K), digit_work(24 * nf, p.K)),
+        ("digit_recompose", "dec's gadget recomposition", (p.K, nf, 24),
+         lambda: dc.gadget_recompose(fb, p.B, p.L),
+         lambda: dc.recompose_twin(fb.reshape(p.K, nw, p.L, 24), p.B, -2),
+         8 * 24 * p.K * (nf + nw),
+         {c: p.K * nw * 24 * v for c, v in horner.items()}),
+        ("digit_recompose", "the fold's witness_from_f", (nf, 24),
+         lambda: dc.gadget_recompose(fb[0], p.B, p.L),
+         lambda: dc.recompose_twin(fb[0].reshape(nw, p.L, 24), p.B, -2),
+         8 * 24 * (nf + nw), {c: nw * 24 * v for c, v in horner.items()}),
+        ("row_sums", "dec's commit sums", (p.K - 1, nf, 24),
+         lambda: accel_nifs.row_sums(fb[1:]),
+         lambda: gl.sum_axis(fb[1:], -2),
+         8 * 24 * ((p.K - 1) * nf + p.K - 1),
+         {"fma": 0, "alu": sum_ops, "total": sum_ops}),
+        ("row_sums", "commit's sums", (1, nf, 24),
+         lambda: accel_nifs.row_sums(fb[:1]),
+         lambda: gl.sum_axis(fb[:1], -2),
+         8 * 24 * (nf + 1),
+         {"fma": 0, "alu": nf * 24 * ROW_SUM_OPS,
+          "total": nf * 24 * ROW_SUM_OPS}))
+    worst, recs = {}, {}
+    for name, label, shape, fn, twin, nbytes, work in cases:
+        e = u64_err(gl, np, fn(), twin())
+        worst[name] = max(worst.get(name, 0), e)
+        if e:
+            fail(f"{name} {label} {shape}: max_abs_err={e} against its twin")
+        ms = graph_ms(torch, fn, 20)
+        plain = cuda_ms(torch, twin, 1)
+        b_ms, _, limit = bound(rate, nbytes, work)
+        log(f"{name} {label} {shape}: bit-exact with the twin; {ms:.4f} ms "
+            f"(CUDA graph of 20), bound {b_ms:.4f} ms by {limit} ({nbytes} "
+            f"bytes), {100 * b_ms / ms:.1f} % of it; twin {plain:.3f} ms")
+        if name not in recs and label.startswith("dec"):
+            recs[name] = record(name, DECOMPOSE_SOURCE, 0, ms, plain, rate,
+                                nbytes, work)
+        torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        rec["max_abs_err"] = worst[name]
+    del w, fc, fb
+    torch.cuda.empty_cache()
+    return list(recs.values())
+
+
+# The witness pipeline's calls of TorchNifs counted on the main path, and
+# the digit twins that must not run there.
+WITNESS_CALLS = ("build_witness", "dec_prove", "witness_from_f",
+                 "witness_from_f_coeff", "commit")
+DIGIT_TWINS = ("decompose_balanced_twin", "recompose_twin")
+
+
+@contextlib.contextmanager
+def counted_calls(owner, names):
+    """Count the calls of owner.<name> for each name while inside."""
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(owner, n) for n in names}
+    own = {n for n in names if n in vars(owner)}   # else a class's method
+
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+    for n, fn in saved.items():
+        setattr(owner, n, counting(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            if n in own:
+                setattr(owner, n, fn)
+            else:
+                delattr(owner, n)
+
+
+def check_digit_launches(launches, calls, twins):
+    """The digit kernels once a pipeline call on the main path, and their
+    twins never."""
+    want = {"balanced_digits": calls["build_witness"] + calls["dec_prove"],
+            "digit_recompose": calls["dec_prove"] + calls["witness_from_f"]
+            + calls["witness_from_f_coeff"],
+            "row_sums": calls["commit"] + calls["dec_prove"]}
+    log(f"witness pipeline calls on the main path: {calls}")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times, not {n} "
+                 f"(witness pipeline calls {calls})")
+    if any(twins.values()):
+        fail(f"a digit twin ran on the main path: {twins}")
 
 
 def sumcheck_launches(prover):

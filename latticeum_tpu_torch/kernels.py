@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
-           "tables.cu", "ring.cu", "coo.cu", "ringmac.cu", "recon.cu")
+           "tables.cu", "ring.cu", "coo.cu", "ringmac.cu", "recon.cu",
+           "decompose.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
 COMPILE_FLAGS = ARCH_FLAGS + ("-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
@@ -119,6 +120,9 @@ SIGNATURES = {
     "lt_fold_c_round": [_VP, _I64] * 2 + [_VP] * 4 + [_I64, _VP],
     "lt_pair_sum": [_VP, _I64, _I32, _VP, _I64, _VP],
     "lt_fold_c_end": [_VP, _I64] * 2 + [_VP, _I32] + [_VP] * 3 + [_I64, _VP],
+    "lt_balanced_digits": [_VP] * 2 + [_I64] * 4 + [_I32] * 2 + [_VP],
+    "lt_digit_recompose": [_VP] * 2 + [_I64] * 5 + [_I32, _VP],
+    "lt_row_sums": [_VP] * 3 + [_I32, _I64, _I32, _I64, _VP],
 }
 
 

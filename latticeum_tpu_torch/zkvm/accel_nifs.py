@@ -22,6 +22,8 @@ from ..host.field import host as H
 from ..host.nifs import decomposition as dec, folding as fold
 from ..host.nifs import linearization as lin, nifs as nifs_mod
 from ..host.nifs.structs import CCCS, LCCCS, TAU
+from ..kernels import launch as _launch, ptr as _ptr, route as _route, \
+    stream as _stream
 from ..ring import decompose as dc, rq
 from . import accel_rounds, claims, comb, tables
 from .tables import brev_on
@@ -59,11 +61,49 @@ def fq3_powers(x, n):
     return out
 
 
+# Rows a block of row_sums' first launch adds (32 words a thread).
+ROW_SUMS_ROWS_PER_GROUP = 512
+
+
+def row_sums(fs):
+    """(B, n, 24) -> (B, 24): each witness's rows summed mod p.  On a card
+    the kernel ``row_sums`` of ``csrc/decompose.cu`` (counterpart of
+    ``latticeum_tpu/zkvm/accel_nifs.py:510`` ``gl.sum_axis(f[1:],
+    axis=-2)``): blocks of ROW_SUMS_ROWS_PER_GROUP rows of each witness
+    sum into a scratch tensor made for this call, and a second launch adds
+    those partials, one reduction an output (counted once a call in
+    ``row_sums.launches``); on the CPU its twin ``gl.sum_axis``."""
+    if fs.dtype != gl.DTYPE:
+        raise TypeError(f"row_sums: dtype {fs.dtype}, expected int64")
+    if fs.dim() != 3 or fs.shape[-1] != rq.D:
+        raise ValueError(f"row_sums: shape {tuple(fs.shape)}, expected "
+                         f"(B, n, {rq.D})")
+    if _route((fs,)) == "cpu":
+        return gl.sum_axis(fs, -2)
+    batch, n = fs.shape[0], fs.shape[1]
+    if batch > 65535:
+        raise ValueError(f"row_sums: {batch} witnesses, at most 65535")
+    if not batch or not n:
+        return torch.zeros((batch, rq.D), dtype=gl.DTYPE, device=fs.device)
+    fs = fs.contiguous()
+    groups = -(-n // ROW_SUMS_ROWS_PER_GROUP)
+    partial = torch.empty((batch, groups, rq.D, 3), dtype=gl.DTYPE,
+                          device=fs.device)
+    out = torch.empty((batch, rq.D), dtype=gl.DTYPE, device=fs.device)
+    _launch("lt_row_sums", _ptr(fs), _ptr(partial), _ptr(out), batch, n,
+            groups, ROW_SUMS_ROWS_PER_GROUP, _stream())
+    row_sums.launches += 1
+    return out
+
+
+row_sums.launches = 0
+
+
 def row_constant_commits(rows, fs):
     """The row-constant Ajtai commitments of the witnesses fs (B, n, 24),
-    (B, kappa, 24): cm_b = rows * sum fs[b], rows (kappa, 24); the sums in
-    torch, the products one launch of rq.ring_mul_each."""
-    return rq.ring_mul_each(rows, gl.sum_axis(fs, -2))
+    (B, kappa, 24): cm_b = rows * sum fs[b], rows (kappa, 24); the sums one
+    call of row_sums, the products one launch of rq.ring_mul_each."""
+    return rq.ring_mul_each(rows, row_sums(fs))
 
 
 def recompose_y0(cm, cms, b_small):

@@ -52,7 +52,7 @@ def _setup(ring):
 def _chain(ring):
     params, ccs, z, wit, scheme, cm_i, acc, w_acc = _setup(ring)
     folded = acc
-    for x, (cm, w) in ((3, (cm_i, wit)), (5, None)):
+    for x, (cm, w) in ((3, (cm_i, wit)), (5, (None, None))):
         if w is None:
             _, _, z2, w = _instance(G, ring, x)
             cm = G.GCCCS(cm=scheme.commit(w.f), x_ccs=z2[:ccs.l])
