@@ -49,10 +49,17 @@ Phases (each prints its own lines; any failure exits non-zero):
               end mode, timed by CUDA graphs beside their bounds; then
               (phase coo)
               coo_matvec (csrc/coo.cu) against its twin in the prover's
-              three segment maps (M z, M^T eq with its 704-entry
-              segments, the head's challenged z over K witnesses added in
-              place) with the CCS's scalar values and with ring values,
-              each timed by a CUDA graph beside its bound; then (phase
+              two plain segment maps (M z, M^T eq with its 704-entry
+              segments) with the CCS's scalar values and with ring
+              values, each timed by a CUDA graph beside its bound;
+              coo_head (csrc/coo.cu) against its twin once a c row: the
+              fold head's challenged z over 2K witnesses added into both
+              c rows of a head in one launch, at production size with
+              scalar and ring values and p - 1 among values, inputs and
+              rows, on ragged CSRs (a 705-entry segment, fewer segments
+              than blocks, one and three witnesses a row) and two launches
+              in flight on two streams (8 times, each against its twin),
+              timed by a CUDA graph beside its bound; then (phase
               sum-check launches) one fold and one lin sum-check at the
               main path's shapes traced by torch.profiler in a fresh
               process: the fold's device launches fewer than
@@ -128,8 +135,9 @@ Phases (each prints its own lines; any failure exits non-zero):
               head_alpha one a fold, crt and icrt at least 5 a step,
               lin_recon_tail once a lin sum-check, round_tail once a
               factored lin round and a fold round, coo_matvec once a lin
-              and five times a fold step (mz_stack; mt_eq_stack twice in
-              dec and once in the fold; twice in the head), fold_c_round
+              and three times a fold step (mz_stack; mt_eq_stack twice in
+              dec and once in the fold), coo_head once a fold step (both
+              c rows of the head), fold_c_round
               once a fold round, once a fold sum-check's end and once a
               factored lin round, ring_mac's sum mode three times a fold
               step (f0, and dec's y0 twice) and its product mode,
@@ -194,8 +202,15 @@ the lin comb's with the eq row as its weight, the folds, the eq row) and
 its permutations at the straight-line SASS of one, beside its chain
 floor, perm16_chain at its permutations; coo_matvec from the
 multiply-adds that its unreduced sums need (9 an Fq3 product, 3 a scalar
-one, a reduction an output or a head entry) and its bytes, the rows
-gathered counted once and only the head's non-empty rows read back;
+one, a reduction an output) and its bytes, the rows gathered counted
+once; coo_head from the least of two ways to form the challenged z
+unreduced once for each distinct (matrix, column) pair of the entries,
+on which alone it depends (coo_head_ops: the schoolbook's 9
+multiply-adds a witness, w zeta formed once a witness and matrix, or
+Karatsuba's 6 and its recombination), a reduction a pair, the value's
+product an entry and a reduction an output, beside its bytes (only the
+non-empty rows read back); and beside the entry-wise formula (the
+challenged z formed for every entry and slot, w zeta with it);
 fold_c_round from its pair sums, its four unreduced Fq3 products a column
 and its folds, beside its bytes; ring_mac from its 9 multiply-adds a
 term and slot (unreduced), a reduction an output and the constants' w c1
@@ -344,6 +359,7 @@ TPU_KERNELS = {"fold_round0": "latticeum_tpu/zkvm/pallas_comb.py:117",
                "crt": "latticeum_tpu/ring/rq.py:61",
                "lin_recon_tail": "latticeum_tpu/zkvm/accel_dev_fs.py:212",
                "coo_matvec": "latticeum_tpu/zkvm/accel.py:117",
+               "coo_head": "latticeum_tpu/zkvm/accel_nifs.py:997",
                "fold_c_round": "latticeum_tpu/zkvm/accel_rounds.py:403",
                "ring_mac": "latticeum_tpu/zkvm/accel_nifs.py:796",
                "balanced_digits": "latticeum_tpu/ring/decompose.py:49",
@@ -459,6 +475,7 @@ def main():
 
     phase("coo")
     records += coo_checks(torch, np, gl, prover, dev, rate, mix)
+    records += coo_head_checks(torch, np, gl, prover, dev, rate, mix)
 
     phase("ring")
     records += ring_checks(torch, np, gl, rq, dev, rate, mix)
@@ -498,7 +515,7 @@ def main():
     challenger.round_tail.launches = 0
     tables.reset_launches()
     rq.reset_launches()
-    accel.coo_matvec.launches = 0
+    accel.coo_matvec.launches = accel.coo_head.launches = 0
     decompose.reset_launches()
     accel_nifs.row_sums.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -520,6 +537,7 @@ def main():
     launches["crt"] = rq.crt.launches + rq.icrt.launches
     launches["lin_recon_tail"] = comb.lin_recon_tail.launches
     launches["coo_matvec"] = accel.coo_matvec.launches
+    launches["coo_head"] = accel.coo_head.launches
     launches["fold_c_round"] = comb.fold_c_round.launches
     launches["ring_mac"] = rq.ring_mac.launches + rq.ring_mul_each.launches
     launches["balanced_digits"] = decompose.decompose_balanced.launches
@@ -557,12 +575,15 @@ def main():
         fail(f"round_tail launched {launches['round_tail']} times, not "
              f"{want_rt} ({ccs.s} rounds a fold sum-check, {n_fact} "
              "factored rounds a lin sum-check)")
-    # one mz_stack a lin; three mt_eq_stack (dec twice, fold once) and two
-    # for the head a fold
-    want_coo = sumchecks["lin"] + 5 * sumchecks["fold"]
-    if launches["coo_matvec"] != want_coo:
+    # one mz_stack a lin; three mt_eq_stack (dec twice, fold once) a fold
+    # step; one coo_head (both c rows) a fold step: lin + 4 fold in all
+    want_coo = sumchecks["lin"] + 3 * sumchecks["fold"]
+    if launches["coo_matvec"] != want_coo or \
+            launches["coo_head"] != sumchecks["fold"]:
         fail(f"coo_matvec launched {launches['coo_matvec']} times, not "
-             f"{want_coo} (one a lin, five a fold step)")
+             f"{want_coo} (one a lin, three a fold step), and coo_head "
+             f"{launches['coo_head']}, not {sumchecks['fold']} (one a fold "
+             "step)")
     # the sum mode: f0 and dec's y0 twice, a fold step; the product mode:
     # dec's commits twice a fold step and the commit of each lin sum-check's
     # witness (commit_z, the initial accumulator's)
@@ -1792,19 +1813,18 @@ def recon_checks(torch, np, gl, comb, accel_rounds, prover, dev, rate, mix,
 
 def coo_checks(torch, np, gl, prover, dev, rate, mix):
     """coo_matvec (zkvm/accel.py, csrc/coo.cu) against its twin on the
-    card, bit for bit, in the prover's three segment maps at production
-    size: M z into the lin stack's t-layout rows (36,536 non-empty of t x
-    2^14 segments), M^T eq by column (t x n segments, up to 704 entries
-    each), the fold head's challenged z over K witnesses added into one c
-    row (2^17 segments); with the CCS's scalar values and with random ring
-    values on the same entries; values p - 1 among the entries and rows of
-    p - 1 among the inputs.  Each timed by a CUDA graph of 20 beside its
-    bound (bytes: the output written, the rows and CSR arrays read once;
-    operations: the multiply-adds an unreduced sum needs), the twin by
-    CUDA events over one call.  Returns the record of M^T eq (scalar), the
-    map whose output is largest."""
+    card, bit for bit, in the prover's two plain segment maps at
+    production size: M z into the lin stack's t-layout rows (36,536
+    non-empty of t x 2^14 segments), M^T eq by column (t x n segments, up
+    to 704 entries each); with the CCS's scalar values and with random
+    ring values on the same entries; values p - 1 among the entries and
+    rows of p - 1 among the inputs.  Each timed by a CUDA graph of 20
+    beside its bound (bytes: the output written, the rows and CSR arrays
+    read once; operations: the multiply-adds an unreduced sum needs), the
+    twin by CUDA events over one call.  Returns the record of M^T eq
+    (scalar), the map whose output is largest."""
     from latticeum_tpu_torch.zkvm import accel, tables
-    e, ccs, K = prover.dn.e, prover.ccs, prover.params.K
+    e, ccs = prover.dn.e, prover.ccs
     rng = np.random.default_rng(29)
 
     def rnd(*shape):
@@ -1818,62 +1838,47 @@ def coo_checks(torch, np, gl, prover, dev, rate, mix):
     ring_vals[:24] = gl.P - 1
     vals = vals.copy()
     vals[:24] = gl.P - 1
-    cap, n, m, t = e.cap_pow2, ccs.n, ccs.m, ccs.t
+    cap, n, t = e.cap_pow2, ccs.n, ccs.t
     brev_cap = tables.brev_host(cap).numpy()
-    brev_m = tables.brev_host(m).numpy()
     maps = {"mz_stack": (mats * cap + brev_cap[rows], cols, t * cap, cap,
                          True),
-            "mt_eq_stack": (mats * n + cols, rows, t * n, n, False),
-            "head": (brev_m[rows], cols, m, m, True)}
-    zeta = rnd(K, t, 3)
+            "mt_eq_stack": (mats * n + cols, rows, t * n, n, False)}
     worst, rec = 0, None
     for name, (seg, gather, nseg, per, t_layout) in maps.items():
-        head = name == "head"
-        x = rnd(K, n, 24) if head else rnd(cap if name == "mt_eq_stack"
-                                           else n, 24)
+        x = rnd(cap if name == "mt_eq_stack" else n, 24)
         for kind, v in (("scalar", vals), ("ring", ring_vals)):
             csr = accel.build_csr(seg, gather, mats, v, nseg, per, dev)
             shape = accel.coo_out_shape(csr, t_layout)
-            base = rnd(*shape[1:]) if head else None
 
             def fresh():
-                return (base.clone() if head else
-                        torch.empty(shape, dtype=gl.DTYPE, device=dev))
-            mode = (t_layout, zeta if head else None)
+                return torch.empty(shape, dtype=gl.DTYPE, device=dev)
             got, want = fresh(), fresh()
-            accel.coo_matvec(csr, x, got, *mode)
-            accel.coo_matvec_twin(csr, x, want, *mode)
+            accel.coo_matvec(csr, x, got, t_layout)
+            accel.coo_matvec_twin(csr, x, want, t_layout)
             err = u64_err(gl, np, got, want)
             worst = max(worst, err)
             sizes = csr.sizes
             log(f"coo_matvec {name} {kind}: {sizes.size} non-empty of "
                 f"{nseg} segments, at most {int(sizes.max())} entries, "
-                f"{csr.n_heavy(K if head else 1)} heavy; "
+                f"{csr.n_heavy()} heavy; "
                 + ("bit-exact with the twin" if err == 0 else
                    f"max_abs_err={err}"))
             if err:
                 fail(f"coo_matvec {name} {kind} disagrees with its twin")
             out = fresh()
             ms = graph_ms(torch, lambda: accel.coo_matvec(
-                csr, x, out, *mode), 20)
+                csr, x, out, t_layout), 20)
             plain = cuda_ms(torch, lambda: accel.coo_matvec_twin(
-                csr, x, fresh(), *mode), 1)
-            nnz, nwit = gather.shape[0], K if head else 1
-            in_rows = np.unique(gather).size * nwit
+                csr, x, fresh(), t_layout), 1)
+            nnz = gather.shape[0]
+            in_rows = np.unique(gather).size
             ring = kind == "ring"
-            nbytes = (8 * (out.numel() * (2 if head else 1) + 24 * in_rows
-                           + v.size + (nwit * t * 3 if head else 0))
-                      + 4 * (nseg + 1 + nnz * (2 if head else 1)))
-            if head:        # only the non-empty rows are read and written
-                nbytes -= 8 * 2 * 24 * (nseg - sizes.size)
-            per_entry = ({"mac192": 9 * nwit, "mul_w": 2 * nwit,
-                          "reduce192": 3} if head else {})
-            per_entry = tally((1, per_entry),
-                              (1, {"mac192": 9, "mul_w": 2} if ring
-                               else {"mac192": 3}))
-            outs = 8 * sizes.size
+            nbytes = (8 * (out.numel() + 24 * in_rows + v.size)
+                      + 4 * (nseg + 1 + nnz))
+            per_entry = ({"mac192": 9, "mul_w": 2} if ring
+                         else {"mac192": 3})
             ops = tally((8 * nnz, per_entry),
-                        (outs, {"reduce192": 3, "add": 3 if head else 0}))
+                        (8 * sizes.size, {"reduce192": 3}))
             b_ms, by, limit = bound(rate, nbytes, pipes(ops, mix))
             log(f"coo_matvec {name} {kind} {tuple(shape)}: {ms:.4f} ms "
                 f"(CUDA graph of 20), bound {b_ms:.4f} ms by {limit}, "
@@ -1885,6 +1890,213 @@ def coo_checks(torch, np, gl, prover, dev, rate, mix):
             torch.cuda.empty_cache()
     rec["max_abs_err"] = worst
     return [rec]
+
+
+def coo_head_ops(nnz, pairs, n_nz, nwit, rows, t, ring):
+    """Field operations that the fold head's challenged-z sums need over
+    `rows` c rows of nwit witnesses.  y = sum_i zeta_i z_i of an entry
+    depends on it only through its (matrix, column) pair: once for each of
+    the `pairs` distinct pairs, row and slot, unreduced and reduced.  Per
+    entry and slot, y's product with the value into the segment's sum (3
+    mac192 a scalar; 9 and w v1, w v2 a ring); per output (non-empty
+    segment and slot) its reduction and the add into the row.  y the
+    least of two ways, as head_alpha_ops: the schoolbook's 9 products a
+    witness (w zeta1, w zeta2 formed once a witness and matrix), or
+    Karatsuba's 6 with 3 adds of z pairs (the zeta pairs once a witness
+    and matrix), 6 reductions and the recombination.  Also the entry-wise
+    formula: the schoolbook's y for every entry and slot, with w zeta1, w
+    zeta2 formed for each.  Returns (formula, schoolbook, karatsuba)."""
+    items, ys = 8 * nnz * rows, 8 * pairs * rows
+    value = (items, {"mac192": 9, "mul_w": 2} if ring else {"mac192": 3})
+    outs = (8 * n_nz * rows, {"reduce192": 3, "add": 3})
+    tabled = rows * nwit * t
+    formula = tally((items, {"mac192": 9 * nwit, "mul_w": 2 * nwit,
+                             "reduce192": 3}), value, outs)
+    school = tally((ys, {"mac192": 9 * nwit, "reduce192": 3}), value,
+                   outs, (tabled, {"mul_w": 2}))
+    karatsuba = tally((ys, {"mac192": 6 * nwit, "add": 3 * nwit + 3,
+                            "reduce192": 6, "mul_w": 2, "sub": 6}),
+                      value, outs, (tabled, {"add": 3}))
+    return formula, school, karatsuba
+
+
+def coo_head_checks(torch, np, gl, prover, dev, rate, mix):
+    """coo_head (zkvm/accel.py, csrc/coo.cu coo_head_kernel) against its
+    twin (coo_matvec_twin's head mode once a c row) on the card, bit for
+    bit: the fold head's challenged z over 2K witnesses added into both c
+    rows, rows 1 and 3 of a (5, 24, m) head whose other rows stay as they
+    are, in the prover's head map at production size (10,361 non-empty of
+    2^17 segments), with the CCS's scalar values and with random ring
+    values, p - 1 among values, witnesses, zeta and output rows; ragged
+    CSRs (coo_head_ragged); two launches in flight on two streams.  Each
+    production kind timed by a CUDA graph of 20 beside its bound (the
+    least of coo_head_ops' two ways, each the larger of its operations and
+    the bytes) and beside the entry-wise formula, the twin by CUDA events
+    over one call.  Returns the record (scalar values)."""
+    from latticeum_tpu_torch.zkvm import accel, tables
+    ccs, K = prover.ccs, prover.params.K
+    rng = np.random.default_rng(31)
+
+    def rnd(*shape):
+        u = rng.integers(0, gl.P, shape, dtype=np.uint64)
+        flat = u.reshape(-1)
+        flat[:min(flat.size, 48)] = gl.P - 1
+        return torch.from_numpy(gl.to_i64_bits(u)).to(dev)
+
+    rows, cols, mats, vals, _ = accel._coo_host(ccs)
+    ring_vals = rng.integers(0, gl.P, (vals.shape[0], 24), dtype=np.uint64)
+    ring_vals[:24] = gl.P - 1
+    vals = vals.copy()
+    vals[:24] = gl.P - 1
+    n, m, t = ccs.n, ccs.m, ccs.t
+    seg = tables.brev_host(m).numpy()[rows]
+    zs, zeta, base = rnd(2 * K, n, 24), rnd(2 * K, t, 3), rnd(5, 24, m)
+    base[1, 7] = base[3, 11] = gl.P_I64 - 1
+    worst, rec, prod = 0, None, []
+    for kind, v in (("scalar", vals), ("ring", ring_vals)):
+        csr = accel.build_csr(seg, cols, mats, v, m, m, dev, head=True)
+        got, want = base.clone(), base.clone()
+        accel.coo_head(csr, zs, zeta, (got[1], got[3]))
+        accel.coo_head_twin(csr, zs, zeta, (want[1], want[3]))
+        err = u64_err(gl, np, got, want)
+        worst = max(worst, err)
+        log(f"coo_head {kind}: 2 rows x {K} witnesses, {csr.sizes.size} "
+            f"non-empty of {m} segments, at most {int(csr.sizes.max())} "
+            "entries; " + ("bit-exact with the twin, rows 0, 2, 4 unchanged"
+                           if err == 0 else f"max_abs_err={err}"))
+        if err:
+            fail(f"coo_head {kind} disagrees with its twin")
+        out = base.clone()
+        ms = graph_ms(torch, lambda: accel.coo_head(
+            csr, zs, zeta, (out[1], out[3])), 20)
+        plain = cuda_ms(torch, lambda: accel.coo_head_twin(
+            csr, zs, zeta, (out[1], out[3])), 1)
+        nnz, n_nz = cols.shape[0], csr.sizes.size
+        # the bytes for both rows: the non-empty rows read and
+        # written, the gathered rows of 2K witnesses, values, zeta and the
+        # CSR once
+        nbytes = (8 * (2 * 2 * 24 * n_nz + 24 * np.unique(cols).size * 2 * K
+                       + v.size + 2 * K * t * 3)
+                  + 4 * (m + 1 + 2 * nnz))
+        pairs = np.unique(mats.astype(np.int64) * n + cols).size
+        formula, school, karatsuba = coo_head_ops(nnz, pairs, n_nz, K, 2, t,
+                                                  kind == "ring")
+        f_ms, _, f_limit = bound(rate, nbytes, pipes(formula, mix))
+        ways = [(bound(rate, nbytes, pipes(w, mix)), w, name)
+                for w, name in ((school, "schoolbook"),
+                                (karatsuba, "Karatsuba"))]
+        (b_ms, _, limit), work, way = min(ways, key=lambda w: w[0][0])
+        log(f"coo_head {kind} (2, 24, {m}): {ms:.4f} ms (CUDA graph of "
+            f"20), {ms / 2:.4f} ms a row's work; bound {b_ms:.4f} ms by "
+            f"{limit} ({way}, y once for each of {pairs} (matrix, column) "
+            f"pairs of {nnz} entries; the other way "
+            f"{max(w[0][0] for w in ways):.4f} ms), {100 * b_ms / ms:.1f} % "
+            f"of it; the entry-wise formula {f_ms:.4f} ms by {f_limit}, "
+            f"{100 * f_ms / ms:.1f} % of it; twin {plain:.3f} ms")
+        if kind == "scalar":
+            rec = record("coo_head", COO_SOURCE, 0, ms, plain, rate, nbytes,
+                         pipes(work, mix))
+        prod.append((csr, zs, zeta, base))
+        del got, want, out
+        torch.cuda.empty_cache()
+    worst = max(worst, coo_head_ragged(torch, np, gl, accel, dev, rng))
+    worst = max(worst, coo_head_two_streams(torch, np, gl, accel, prod))
+    rec["max_abs_err"] = worst
+    return [rec]
+
+
+def coo_head_ragged(torch, np, gl, accel, dev, rng):
+    """coo_head against its twin on ragged CSRs of one block of segments:
+    a 705-entry segment over many runs and blocks, a run of segments of 1
+    ... 20 entries, most segments empty, with 15, 3 and 1 witnesses a row;
+    three non-empty segments (fewer than the blocks); every value,
+    witness and zeta p - 1.  Returns the largest error (0)."""
+    p1 = gl.P_I64 - 1
+    cases = [("705-entry segment, 15 witnesses", 1024, 705, 15, False),
+             ("705-entry segment, rings, 1 witness", 1024, 705, 1, True),
+             ("3 witnesses", 4096, 90, 3, False),
+             ("three segments", 64, 0, 15, True),
+             ("all p - 1", 512, 200, 15, False)]
+    worst = 0
+    for name, nseg, heavy, k, ring in cases:
+        t, rows_in = 7, 300
+        if heavy:
+            seg = np.concatenate([rng.integers(0, nseg, nseg // 4),
+                                  np.full(heavy, nseg // 2),
+                                  np.repeat(np.arange(5, 25),
+                                            np.arange(1, 21))])
+        else:
+            seg = np.array([0, nseg // 3, nseg // 3, nseg - 1])
+        nnz = seg.shape[0]
+        gather = rng.integers(0, rows_in, nnz)
+        mats = rng.integers(0, t, nnz)
+        shape = (nnz, 24) if ring else (nnz,)
+        v = rng.integers(0, gl.P, shape, dtype=np.uint64)
+        zs = torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, (2 * k, rows_in, 24), dtype=np.uint64))).to(dev)
+        zeta = torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, (2 * k, t, 3), dtype=np.uint64))).to(dev)
+        if name == "all p - 1":
+            v[:] = gl.P - 1
+            zs.fill_(p1)
+            zeta.fill_(p1)
+        csr = accel.build_csr(seg, gather, mats, v, nseg, nseg, dev,
+                              head=True)
+        base = torch.from_numpy(gl.to_i64_bits(rng.integers(
+            0, gl.P, (2, 24, nseg), dtype=np.uint64))).to(dev)
+        got, want = base.clone(), base.clone()
+        accel.coo_head(csr, zs, zeta, list(got))
+        accel.coo_head_twin(csr, zs, zeta, list(want))
+        err = u64_err(gl, np, got, want)
+        worst = max(worst, err)
+        if err:
+            fail(f"coo_head, {name}: max_abs_err={err}")
+    log(f"coo_head: {len(cases)} ragged and edge CSRs bit-exact with the "
+        "twin")
+    return worst
+
+
+def coo_head_two_streams(torch, np, gl, accel, prod):
+    """Two coo_head launches in flight at once on two streams (the
+    production map with scalar and with ring values), eight times over,
+    each bit-equal to its twin: no state is shared between launches.
+    Both wait for a gate on a third stream; the second spins some 30 us
+    more and has the higher priority, so its blocks are handed out while
+    the first launch runs.  The roles swap every time.  Returns the
+    largest error (0)."""
+    cases = []
+    for csr, zs, zeta, base in prod:
+        want = base.clone()
+        accel.coo_head_twin(csr, zs, zeta, (want[1], want[3]))
+        cases.append(((csr, zs, zeta, base), want))
+    streams = (torch.cuda.Stream(priority=0),
+               torch.cuda.Stream(priority=-1))
+    gate = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for rep in range(8):
+        order = cases if rep % 2 == 0 else cases[::-1]
+        outs = [args[3].clone() for args, _ in order]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(gate):
+            torch.cuda._sleep(2_000_000)
+        opened = torch.cuda.Event()
+        opened.record(gate)
+        for k, (stream, ((csr, zs, zeta, _), _), out) in enumerate(
+                zip(streams, order, outs)):
+            with torch.cuda.stream(stream):
+                stream.wait_event(opened)
+                if k:
+                    torch.cuda._sleep(60_000)
+                accel.coo_head(csr, zs, zeta, (out[1], out[3]))
+        torch.cuda.synchronize()
+        for (_, want), got in zip(order, outs):
+            err = u64_err(gl, np, got, want)
+            if err:
+                fail(f"coo_head on two streams, repeat {rep}: "
+                     f"max_abs_err={err}")
+    log("coo_head: two launches in flight on two streams of low and high "
+        "priority, 8 times, each bit-exact with its twin")
+    return 0
 
 
 def fold_c_checks(torch, np, gl, comb, prover, dev, rate, mix):

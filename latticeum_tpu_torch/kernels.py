@@ -115,8 +115,10 @@ SIGNATURES = {
     "lt_crt": [_VP] * 2 + [_I64, _I32, _VP, _VP],
     "lt_ring_mac": [_VP] * 2 + [_I32, _I64, _VP, _I32] + [_VP] * 2
     + [_I64, _I32, _VP],
-    "lt_coo_matvec": [_VP] * 5 + [_I32] * 2 + [_I64] * 2 + [_VP, _I64, _VP]
-    + [_I32] * 4 + [_VP] * 2,
+    "lt_coo_matvec": [_VP] * 4 + [_I32] * 2 + [_I64] * 2 + [_VP]
+    + [_I32] * 2 + [_VP] * 2,
+    "lt_coo_head": [_VP] * 2 + [_I32] + [_VP] * 3 + [_I32, _VP, _I64, _VP]
+    + [_I32] * 2 + [_I64] + [_VP] * 3,
     "lt_fold_c_round": [_VP, _I64] * 2 + [_VP] * 4 + [_I64, _VP],
     "lt_pair_sum": [_VP, _I64, _I32, _VP, _I64, _VP],
     "lt_fold_c_end": [_VP, _I64] * 2 + [_VP, _I32] + [_VP] * 3 + [_I64, _VP],

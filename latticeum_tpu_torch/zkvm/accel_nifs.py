@@ -296,8 +296,8 @@ class TorchNifs:
 
         the eq rows and the alpha-sums written in place by their kernels
         (``tables``), then the challenged z per COO entry, segment-summed
-        straight into bit-reversed rows, added to each c row by one
-        ``coo_matvec`` (``Engine.mz_challenged``)."""
+        straight into bit-reversed rows, added to both c rows by one
+        ``coo_head`` (``Engine.mz_challenged``)."""
         ccs, e, dev = self.ccs, self.e, self.device
         K, m, t = self.p.K, ccs.m, ccs.t
         alpha = gl.upload(gl.from_int(
@@ -310,8 +310,7 @@ class TorchNifs:
         for row, pt in zip((0, 2, 4), eq_points):
             e.eq_table(pt, m, t_layout=True, out=head[row])
         tables.head_alpha(tail, alpha, head[1], head[3])
-        for row, lo, hi in ((1, 0, K), (3, K, 2 * K)):
-            e.mz_challenged(zs[lo:hi], zeta[lo:hi], head[row])
+        e.mz_challenged(zs, zeta, (head[1], head[3]))
         return head
 
     def fold_prove(self, cm_i_s, transcript, batches, log=None):

@@ -35,19 +35,20 @@ import json
 import os
 import re
 import shutil
-import subprocess
-from pathlib import Path
-
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from latticeum_tpu_torch import kernels  # noqa: E402
 from latticeum_tpu_torch.field import goldilocks as gl  # noqa: E402
 from latticeum_tpu_torch.zkvm import comb  # noqa: E402
+import trial_tools  # noqa: E402
+from trial_tools import events_ms  # noqa: E402
 
 # A variant's rewrites of comb.cu: a constant's new value, or "bulk": False
 # for the cp.async path on every tile.
@@ -138,29 +139,13 @@ def variant_source(text, rewrites):
 def build(out_dir, sources):
     """{name: (library, ptxas registers of fold_c_kernel)}, every source
     compiled by its own nvcc, all at once."""
-    flags = [*kernels.ARCH_FLAGS, "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             "-shared", "-I", str(kernels.CSRC)]
-    procs = {}
-    for name, (src, extra) in sources.items():
-        so = out_dir / f"lib{len(procs)}.so"
-        procs[name] = (so, subprocess.Popen(
-            [kernels.nvcc(), *flags, *extra, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for name, (so, proc) in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{text}")
-        regs, fn = [], None
-        for line in text.splitlines():
-            if "Compiling entry function" in line:
-                fn = line
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn and "fold_c_kernel" in fn:
-                regs.append(int(m.group(1)))
-                fn = None
-        out[name] = (ctypes.CDLL(str(so)), regs)
-    return out
+    flags = ["-I", str(kernels.CSRC)]
+    built = trial_tools.build(
+        {name: (src, [*flags, *extra]) for name, (src, extra)
+         in sources.items()}, out_dir)
+    return {name: (lib, [r for _, r, _ in
+                         trial_tools.ptxas(text, "fold_c_kernel")])
+            for name, (lib, text) in built.items()}
 
 
 def caller(lib, ticketed, args, w):
@@ -190,29 +175,13 @@ def caller(lib, ticketed, args, w):
     return run
 
 
-def events_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fold_c_trials: no CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    card = trial_tools.card()
     text = (kernels.CSRC / "comb.cu").read_text()
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     out_dir = kernels.BUILD_DIR / f"trials.{os.getpid()}"

@@ -5,10 +5,11 @@ toolkit:
     python3 scripts/recon_trials.py
 
 Each variant is a copy of ``latticeum_tpu_torch/csrc/recon.cu`` with some
-of its lines rewritten (``VARIANTS``), compiled with the headers it
-includes by its own nvcc, all at once, each into a library of its own
-under a fresh directory of ``_build/``.  Every variant runs the tail of
-the zkVM's lin sum-check as the main path runs it (its 125 Mz rows and 52
+of its lines rewritten (``VARIANTS``), compiled with the headers of
+``csrc/`` by its own nvcc, all at once, each into a library of its own
+under a fresh directory of ``_build/`` (``trial_tools.build``).  Every
+variant runs the tail of the zkVM's lin sum-check as the main path runs
+it (its 125 Mz rows and 52
 multisets with their +-1 signs, 3 rounds after 14 factored ones, a table
 of 8 columns, 9 points), is timed by a CUDA graph of 50 launches, twice,
 the variants in turns, and, where it still computes the tail, is held bit
@@ -25,9 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
 import shutil
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -36,12 +35,14 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from latticeum_tpu_torch import kernels  # noqa: E402
 from latticeum_tpu_torch.crypto import challenger  # noqa: E402
 from latticeum_tpu_torch.field import goldilocks as gl  # noqa: E402
 from latticeum_tpu_torch.parallel import lin_mesh  # noqa: E402
 from latticeum_tpu_torch.zkvm import comb  # noqa: E402
+import trial_tools  # noqa: E402
 
 # Rewrites of recon.cu: (old text, new text), each found exactly once.
 NO_CHAIN = ("s = permute16(s, kt, diag, lane);", "s = s + 1;")
@@ -166,59 +167,30 @@ def build(out_dir):
     """{name: (library, ptxas registers of the kernel)}, every variant
     compiled by its own nvcc, all at once."""
     src = (kernels.CSRC / "recon.cu").read_text()
-    procs = {}
+    sources = {}
     for name, (rewrites, _) in VARIANTS.items():
-        d = out_dir / f"v{len(procs)}"
-        d.mkdir()
-        for header in ("field.cuh", "challenger.cuh"):
-            shutil.copy(kernels.CSRC / header, d)
-        (d / "recon.cu").write_text(variant_source(src, rewrites))
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [kernels.nvcc(), *kernels.ARCH_FLAGS, "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-shared", "-o", str(d / "lib.so"),
-             str(d / "recon.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        path = out_dir / f"recon{len(sources)}.cu"
+        path.write_text(variant_source(src, rewrites))
+        sources[name] = (path, ["-I", str(kernels.CSRC)])
     out = {}
-    for name, (so, proc) in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{text}")
-        lib = ctypes.CDLL(str(so))
+    for name, (lib, text) in trial_tools.build(sources, out_dir).items():
         lib.lt_lin_recon_tail.argtypes = kernels.SIGNATURES[
             "lt_lin_recon_tail"]
         lib.lt_lin_recon_tail.restype = ctypes.c_int
-        regs = re.findall(r"Used (\d+) registers", text)
-        out[name] = (lib, [int(m) for m in regs])
+        out[name] = (lib, [r for _, r, _ in trial_tools.ptxas(text)])
     return out
 
 
-def graph_ms(fn, reps=50):
-    """Device time per call of fn: reps calls in a CUDA graph, replayed."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / 5 / reps
+def graph_ms(fn):
+    """Device time per call of fn: 50 calls in a CUDA graph, replayed."""
+    return trial_tools.graph_ms(fn, reps=50, replays=5)
 
 
 def main():
     if not torch.cuda.is_available():
         print("recon_trials: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = trial_tools.card()
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     out_dir = Path(tempfile.mkdtemp(prefix="recon_trials_",
                                     dir=kernels.BUILD_DIR))
