@@ -43,7 +43,7 @@ import torch
 
 from ..field import fq3, goldilocks as gl
 from ..host.crypto import consts
-from ..kernels import check, launch, ptr, route, stream
+from ..kernels import check, counted, launch, ptr, route, stream
 from ..ring import rq
 
 WIDTH, RATE = 16, 12
@@ -236,6 +236,7 @@ def round_tail(sums, lag, points, E, state, pend, msgs, chals, r,
 
 
 round_tail.launches = 0
+counted(round_tail, "lt_round_tail")
 
 
 # -- the permutation chain alone ----------------------------------------------
@@ -261,3 +262,4 @@ def perm16_chain(state, n):
 
 
 perm16_chain.launches = 0
+counted(perm16_chain, "lt_perm16_chain")

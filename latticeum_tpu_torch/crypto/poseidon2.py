@@ -24,7 +24,7 @@ import torch
 
 from ..field import goldilocks as gl
 from ..host.crypto import consts
-from ..kernels import check, launch, ptr, route, stream
+from ..kernels import check, counted, launch, ptr, route, stream
 
 WIDTH = 8
 RATE = 4
@@ -144,6 +144,7 @@ def perm8(state):
 
 
 perm8.launches = 0
+counted(perm8, "lt_perm8")
 
 
 # -- the sponge ---------------------------------------------------------------
@@ -185,6 +186,7 @@ def sponge8(rows):
 
 
 sponge8.launches = 0
+counted(sponge8, "lt_sponge8")
 
 
 # -- Merkle levels ------------------------------------------------------------

@@ -19,12 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..host.utils import tracing
+
 P = 0xFFFFFFFF00000001
 EPS = 0xFFFFFFFF               # 2^64 mod p
 MASK32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)             # int64 with only the top bit set
 P_I64 = P - (1 << 64)          # p as a signed int64 bit pattern
 DTYPE = torch.int64
+FETCH = "fetch.count"          # the tracer's count of device -> host copies
 
 
 def _ult(a, b):
@@ -67,7 +70,7 @@ def upload(t, device):
 
 def to_limbs(x):
     """int64 tensor -> (lo, hi) uint32 numpy limb pair."""
-    u = x.detach().cpu().contiguous().numpy().view(np.uint64)
+    u = to_u64(x)
     return ((u & np.uint64(MASK32)).astype(np.uint32),
             (u >> np.uint64(32)).astype(np.uint32))
 
@@ -81,7 +84,10 @@ def from_int(values, device=None):
 
 
 def to_u64(x):
-    """int64 tensor -> numpy uint64 array (host copy)."""
+    """int64 tensor -> numpy uint64 array (host copy; from a card, one
+    device -> host copy, counted by the tracer as FETCH)."""
+    if tracing.active() and x.device.type != "cpu":
+        tracing.add(FETCH)
     return x.detach().cpu().contiguous().numpy().view(np.uint64)
 
 

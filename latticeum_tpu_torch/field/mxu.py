@@ -42,8 +42,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
-                       route as _route, stream as _stream)
+from ..kernels import (check as _check, counted as _counted,
+                       launch as _launch, ptr as _ptr, route as _route,
+                       stream as _stream)
 from . import goldilocks as gl
 
 P = gl.P
@@ -231,7 +232,8 @@ def ring_contract(A, B, t_layout=False):
                     digit_split(B.contiguous(), t_layout))
 
 
-KERNELS = (digit_split, plane_recombine)
+KERNELS = (_counted(digit_split, "lt_digit_split"),
+           _counted(plane_recombine, "lt_plane_recombine"))
 
 
 def reset_launches():

@@ -5,6 +5,8 @@ Builds the shared library on first use (g++ -O3) into the port's ``_build/``
 flags, so an edited source is rebuilt and no tracked file is written; falls
 back to the pure Python oracle when a toolchain is unavailable.  Constants
 are injected from crypto/consts.py so there is a single source of truth.
+With the tracer on, the challenger's calls into the core are its timer
+TIMER and their permutations its counter PERMS.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import subprocess
 
 import numpy as np
 
+from ..utils import tracing
 from . import consts
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -24,6 +27,8 @@ _BUILD_DIR = os.path.join(_HERE, "..", "..", "_build")
 _FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lib = None
+TIMER = "transcript.native_s"       # the tracer's timer of the core's calls
+PERMS = "transcript.perms"          # the tracer's count of permutations
 
 
 def _lib_path():
@@ -133,15 +138,28 @@ class NativeChallenger:
         self.st = np.zeros(42, dtype=np.uint64)
         self._lib = load()
 
+    def _observe(self, vals):
+        if not tracing.active():
+            self._lib.p2_observe_many(self.st, vals, len(vals))
+            return
+        # a permutation each time the input buffer (st[16]) reaches 12
+        tracing.add(PERMS, (int(self.st[16]) + len(vals)) // 12)
+        with tracing.timer(TIMER):
+            self._lib.p2_observe_many(self.st, vals, len(vals))
+
     def observe(self, value: int):
-        self._lib.p2_observe_many(self.st, _arr([value]), 1)
+        self._observe(_arr([value]))
 
     def observe_many(self, values):
-        vals = _arr([v for v in values])
-        self._lib.p2_observe_many(self.st, vals, len(vals))
+        self._observe(_arr([v for v in values]))
 
     def sample(self) -> int:
-        return int(self._lib.p2_sample(self.st))
+        if not tracing.active():
+            return int(self._lib.p2_sample(self.st))
+        # a permutation where input is pending or the output buffer is empty
+        tracing.add(PERMS, int(self.st[16] > 0 or self.st[17] == 0))
+        with tracing.timer(TIMER):
+            return int(self._lib.p2_sample(self.st))
 
     def squeeze_bytes(self, n: int) -> bytes:
         out = bytearray()

@@ -22,7 +22,9 @@ oracle and the host-side transcript engine.
 
 from __future__ import annotations
 
+from ..utils import tracing
 from . import consts
+from .native import PERMS
 
 P = 18446744069414584321
 
@@ -145,6 +147,7 @@ class DuplexChallenger:
     observe() buffers up to RATE inputs and duplexes when full; sample()
     duplexes if there is pending input (or no output) and pops from the END
     of the output buffer (state[11] first).
+    With the tracer on, each duplex counts one permutation (PERMS).
     """
 
     WIDTH = 16
@@ -160,6 +163,8 @@ class DuplexChallenger:
         for i, v in enumerate(self.input_buffer):
             self.state[i] = v
         self.input_buffer.clear()
+        if tracing.active():
+            tracing.add(PERMS)
         self.state = perm16(self.state)
         self.output_buffer = list(self.state[: self.RATE])
 

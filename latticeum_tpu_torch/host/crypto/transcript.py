@@ -11,17 +11,23 @@ Bit-exact mirror of the reference's Poseidon2Transcript
     (cyclotomic-rings/src/rings/goldilocks.rs:36-69).
 
 Host-side ints; heavy math stays on device, only protocol-level scalars pass
-through here.
+through here.  Each absorb, sample, export and import method is the
+tracer's timer ``transcript.s`` (a call inside another counts once); the
+native core's calls and state are ``transcript.native_s``, and the
+challenger counts its permutations in ``transcript.perms``.
 """
 
 from __future__ import annotations
 
 from ..field import host as H
+from ..utils import tracing
 from . import poseidon2_ref as p2
+from .native import TIMER as NATIVE_TIMER
 
 P = p2.P
 MAX_COEFF = 32
 SHORT_CHALLENGE_BYTES = 18
+TIMER = "transcript.s"
 
 
 def decode_short_challenge(bs: bytes):
@@ -54,6 +60,7 @@ class Transcript:
         self.samples: list[int] | None = [] if record_samples else None
 
     # -- absorb ------------------------------------------------------------
+    @tracing.timed(TIMER)
     def absorb_ring(self, ntt24):
         """Absorb one RqNTT element (24 ints, slot-major)."""
         if hasattr(self.ch, "observe_many"):
@@ -62,6 +69,7 @@ class Transcript:
             for v in ntt24:
                 self.ch.observe(v % P)
 
+    @tracing.timed(TIMER)
     def absorb_slice(self, rings):
         self.absorptions.append([list(r) for r in rings])
         if hasattr(self.ch, "observe_many"):
@@ -70,15 +78,18 @@ class Transcript:
             for r in rings:
                 self.absorb_ring(r)
 
+    @tracing.timed(TIMER)
     def absorb_u64(self, c: int):
         """Absorb R::from(c) — scalar embedded in every slot."""
         self.absorb_ring(H.ntt_from_u64(c))
 
+    @tracing.timed(TIMER)
     def absorb_fq3(self, x):
         """Absorb an Fq3 embedded via from_scalar (all slots equal)."""
         self.absorb_ring(H.ntt_from_fq3(x))
 
     # -- device Fiat-Shamir sync (zkvm/accel_dev_fs.py) --------------------
+    @tracing.timed(TIMER)
     def export_for_device(self) -> tuple[list[int], list[int]]:
         """-> (state16, input_buffer) for the device challenger.
 
@@ -87,22 +98,25 @@ class Transcript:
         holds at every sum-check phase boundary."""
         ch = self.ch
         if hasattr(ch, "st"):                       # NativeChallenger
-            st = ch.st
-            return ([int(v) for v in st[:16]],
-                    [int(st[18 + i]) for i in range(int(st[16]))])
+            with tracing.timer(NATIVE_TIMER):
+                st = ch.st
+                return ([int(v) for v in st[:16]],
+                        [int(st[18 + i]) for i in range(int(st[16]))])
         return list(ch.state), list(ch.input_buffer)
 
+    @tracing.timed(TIMER)
     def import_from_device(self, state16, input_buffer):
         """Resync the host challenger from the device run's final state."""
         import numpy as np
         ch = self.ch
         if hasattr(ch, "st"):
-            ch.st[:16] = np.array([int(v) % P for v in state16],
-                                  dtype=np.uint64)
-            ch.st[16] = len(input_buffer)
-            ch.st[17] = 0
-            for i, v in enumerate(input_buffer):
-                ch.st[18 + i] = int(v) % P
+            with tracing.timer(NATIVE_TIMER):
+                ch.st[:16] = np.array([int(v) % P for v in state16],
+                                      dtype=np.uint64)
+                ch.st[16] = len(input_buffer)
+                ch.st[17] = 0
+                for i, v in enumerate(input_buffer):
+                    ch.st[18 + i] = int(v) % P
         else:
             ch.state = [int(v) % P for v in state16]
             ch.input_buffer = [int(v) % P for v in input_buffer]
@@ -115,6 +129,7 @@ class Transcript:
             self.samples.append(v)
         return v
 
+    @tracing.timed(TIMER)
     def get_challenge(self):
         """-> Fq3 (c0, c1, c2); samples then re-observes (fiat_shamir.rs:69-86)."""
         c0 = self._sample()
@@ -125,6 +140,7 @@ class Transcript:
         self.ch.observe(c2)
         return (c0, c1, c2)
 
+    @tracing.timed(TIMER)
     def squeeze_bytes(self, n: int) -> bytes:
         """fiat_shamir.rs:88-102: little-endian bytes of canonical samples."""
         out = bytearray()
@@ -133,6 +149,7 @@ class Transcript:
             out.extend(val.to_bytes(8, "little")[:min(n - len(out), 8)])
         return bytes(out)
 
+    @tracing.timed(TIMER)
     def get_short_challenge(self):
         """-> 24 coefficient-form ints in balanced range [-32, 32)."""
         return decode_short_challenge(self.squeeze_bytes(SHORT_CHALLENGE_BYTES))
@@ -156,15 +173,19 @@ class ReplayTranscript(Transcript):
         self._pos = 0
 
     # absorbs: keep only the absorptions bookkeeping
+    @tracing.timed(TIMER)
     def absorb_ring(self, ntt24):
         pass
 
+    @tracing.timed(TIMER)
     def absorb_slice(self, rings):
         self.absorptions.append([list(r) for r in rings])
 
+    @tracing.timed(TIMER)
     def absorb_u64(self, c):
         pass
 
+    @tracing.timed(TIMER)
     def absorb_fq3(self, x):
         pass
 
@@ -173,5 +194,6 @@ class ReplayTranscript(Transcript):
         self._pos += 1
         return v
 
+    @tracing.timed(TIMER)
     def get_challenge(self):
         return (self._sample(), self._sample(), self._sample())

@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from .host.utils import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("comb.cu", "poseidon2.cu", "mxu.cu", "challenger.cu",
@@ -126,6 +128,58 @@ SIGNATURES = {
     "lt_digit_recompose": [_VP] * 2 + [_I64] * 5 + [_I32, _VP],
     "lt_row_sums": [_VP] * 3 + [_I32, _I64, _I32, _I64, _VP],
 }
+
+# The device kernels each C entry point launches, in the order it launches
+# them (their names as the profiler shows them, template arguments apart).
+DEVICE_KERNELS = {
+    "lt_fold_round0": ("fold_round0_kernel", "reduce_partials_kernel"),
+    "lt_fold_roundr": ("fold_roundr_kernel", "reduce_partials_kernel"),
+    "lt_lin_round0": ("lin_round0_kernel", "reduce_partials_kernel"),
+    "lt_lin_roundr": ("lin_roundr_kernel", "reduce_partials_kernel"),
+    "lt_lin_recon_tail": ("lin_recon_tail_kernel",),
+    "lt_perm8": ("perm8_kernel",),
+    "lt_sponge8": ("sponge8_kernel",),
+    "lt_digit_split": ("digit_split_kernel",),
+    "lt_plane_recombine": ("plane_recombine_kernel",),
+    "lt_round_tail": ("round_tail_kernel",),
+    "lt_perm16_chain": ("perm16_chain_kernel",),
+    "lt_eq_table": ("eq_table_kernel",),
+    "lt_head_alpha": ("head_alpha_kernel",),
+    "lt_crt": ("crt_kernel",),
+    "lt_ring_mac": ("ring_mac_kernel",),
+    "lt_coo_matvec": ("coo_kernel",),
+    "lt_coo_head": ("coo_head_kernel",),
+    "lt_fold_c_round": ("fold_c_kernel",),
+    "lt_pair_sum": ("pair_sum_kernel",),
+    "lt_fold_c_end": ("fold_c_end_kernel",),
+    "lt_balanced_digits": ("balanced_digits_kernel",),
+    "lt_digit_recompose": ("digit_recompose_kernel",),
+    "lt_row_sums": ("row_sums_partial_kernel", "row_sums_final_kernel"),
+}
+
+# The launch counters: every wrapper that calls an entry point counts its
+# calls in its own `launches` attribute (which its module's reset_launches
+# clears) and is listed here with the entry points it calls.
+COUNTED = []
+
+
+def counted(wrapper, *entries):
+    """List `wrapper` as the counted caller of `entries`; each of its
+    counted calls launches as many device kernels as one of them."""
+    sizes = {len(DEVICE_KERNELS[e]) for e in entries}
+    if len(sizes) != 1:
+        raise ValueError(f"{wrapper.__name__}: entries {entries} launch "
+                         "different numbers of kernels")
+    COUNTED.append((wrapper, entries, sizes.pop()))
+    return wrapper
+
+
+def launch_count() -> int:
+    """Device kernels launched so far through the counted wrappers."""
+    return sum(w.launches * per_call for w, _, per_call in COUNTED)
+
+
+tracing.source("kernel.launches", launch_count)
 
 
 def lib():

@@ -24,8 +24,8 @@ import math
 import torch
 
 from ..field import goldilocks as gl
-from ..kernels import launch as _launch, ptr as _ptr, route as _route, \
-    stream as _stream
+from ..kernels import counted as _counted, launch as _launch, \
+    ptr as _ptr, route as _route, stream as _stream
 
 _Q_HALF = (gl.P - 1) // 2
 _MAX_LOG_B = 62                   # b - r and b itself stay int64
@@ -150,7 +150,8 @@ def decompose_vec_into_k_vecs(w, b: int, K: int):
     return _digits(w, b, K, (K,) + tuple(w.shape), max(size, 1), 0, size)
 
 
-KERNELS = (decompose_balanced, recompose)
+KERNELS = (_counted(decompose_balanced, "lt_balanced_digits"),
+           _counted(recompose, "lt_digit_recompose"))
 
 
 def reset_launches():

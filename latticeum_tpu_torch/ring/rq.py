@@ -31,8 +31,8 @@ import torch
 
 from ..field import fq3, goldilocks as gl
 from ..host.ring import ref_impl
-from ..kernels import launch as _launch, ptr as _ptr, route as _route, \
-    stream as _stream
+from ..kernels import counted as _counted, launch as _launch, \
+    ptr as _ptr, route as _route, stream as _stream
 
 D = ref_impl.D
 N_SLOTS = ref_impl.N
@@ -258,7 +258,9 @@ def ring_mul_each(x, c):
     return out
 
 
-KERNELS = (crt, icrt, ring_mac, ring_mul_each)
+KERNELS = (_counted(crt, "lt_crt"), _counted(icrt, "lt_crt"),
+           _counted(ring_mac, "lt_ring_mac"),
+           _counted(ring_mul_each, "lt_ring_mac"))
 
 
 def reset_launches():

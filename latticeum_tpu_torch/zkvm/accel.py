@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from ..field import goldilocks as gl
-from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
-                       route as _route, stream as _stream)
+from ..kernels import (check as _check, counted as _counted,
+                       launch as _launch, ptr as _ptr, route as _route,
+                       stream as _stream)
 from ..ring import rq
 from . import tables
 
@@ -179,6 +180,7 @@ def coo_matvec(csr, x, out, t_layout):
 
 
 coo_matvec.launches = 0
+_counted(coo_matvec, "lt_coo_matvec")
 
 
 def coo_head_twin(csr, zs, zeta, outs):
@@ -227,6 +229,7 @@ def coo_head(csr, zs, zeta, outs):
 
 
 coo_head.launches = 0
+_counted(coo_head, "lt_coo_head")
 
 
 class Engine:

@@ -13,8 +13,6 @@ the fold's f_hat tail is a plain concatenation.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from ..field import goldilocks as gl, mxu
@@ -22,8 +20,9 @@ from ..host.field import host as H
 from ..host.nifs import decomposition as dec, folding as fold
 from ..host.nifs import linearization as lin, nifs as nifs_mod
 from ..host.nifs.structs import CCCS, LCCCS, TAU
-from ..kernels import launch as _launch, ptr as _ptr, route as _route, \
-    stream as _stream
+from ..host.utils import tracing
+from ..kernels import counted as _counted, launch as _launch, \
+    ptr as _ptr, route as _route, stream as _stream
 from ..ring import decompose as dc, rq
 from . import accel_rounds, claims, comb, tables
 from .tables import brev_on
@@ -97,6 +96,7 @@ def row_sums(fs):
 
 
 row_sums.launches = 0
+_counted(row_sums, "lt_row_sums")
 
 
 def row_constant_commits(rows, fs):
@@ -265,7 +265,8 @@ class TorchNifs:
         y0 = recompose_y0(self.e.ints([list(c) for c in cm_i.cm]), cms,
                           p.B_SMALL)
         y_s = gl.to_int_lists(torch.cat([y0[None], cms]))
-        x_s = dec.compute_x_s(cm_i.x_w, cm_i.h, p)
+        with tracing.span("nifs.dec.compute_x_s"):
+            x_s = dec.compute_x_s(cm_i.x_w, cm_i.h, p)
         eq_r = self.e.eq_table(point, fhat_b.shape[-1],
                                t_layout=True)
         v_s = gl.to_int_lists(claims.eval_fhat(fhat_b, eq_r))
@@ -353,32 +354,30 @@ class TorchNifs:
     # -- composition ------------------------------------------------------------
     def prove(self, acc, w_acc: TorchWitness, cm_i, w_i: TorchWitness,
               transcript, log=None, timings=None):
-        t = time.time()
+        """The fold step; each phase a span that waits for the device as
+        it closes and appends its seconds to timings[phase] (lin, dec_l,
+        dec_r, fold)."""
+        dev = self.device
+        wait = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else None)
 
-        def mark(name):
-            nonlocal t
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.time()
-            if timings is not None:
-                timings.setdefault(name, []).append(now - t)
-            if log:
-                log(f"  nifs.{name}: {now - t:.2f}s")
-            t = now
+        def phase(name):
+            return tracing.span("nifs." + name, timings, name, wait, log)
 
-        nifs_mod.sanity_check(self.ccs, self.p)
-        nifs_mod.absorb_public_input(acc, cm_i, transcript)
-        linearized, lin_proof, _ = self.lin_prove(cm_i, w_i, transcript,
-                                                  log=log)
-        mark("lin")
-        lc_l, _, dp_l, b_l = self.dec_prove(acc, w_acc, transcript, log=log)
-        mark("dec_l")
-        lc_r, _, dp_r, b_r = self.dec_prove(linearized, w_i, transcript,
-                                            log=log)
-        mark("dec_r")
-        folded, w0, fp = self.fold_prove(lc_l + lc_r, transcript, (b_l, b_r),
-                                         log=log)
-        mark("fold")
+        with phase("lin"):
+            nifs_mod.sanity_check(self.ccs, self.p)
+            nifs_mod.absorb_public_input(acc, cm_i, transcript)
+            linearized, lin_proof, _ = self.lin_prove(cm_i, w_i, transcript,
+                                                      log=log)
+        with phase("dec_l"):
+            lc_l, _, dp_l, b_l = self.dec_prove(acc, w_acc, transcript,
+                                                log=log)
+        with phase("dec_r"):
+            lc_r, _, dp_r, b_r = self.dec_prove(linearized, w_i, transcript,
+                                                log=log)
+        with phase("fold"):
+            folded, w0, fp = self.fold_prove(lc_l + lc_r, transcript,
+                                             (b_l, b_r), log=log)
         proof = {"linearization": lin_proof, "decomposition_l": dp_l,
                  "decomposition_r": dp_r, "folding": fp}
         return folded, w0, proof

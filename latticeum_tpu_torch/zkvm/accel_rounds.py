@@ -54,6 +54,7 @@ import torch
 from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
 from ..host.field import host as H
+from ..host.utils import tracing
 from ..ring import rq
 from . import comb
 
@@ -126,9 +127,13 @@ def _pending(pend0, chals, r):
 
 
 def _fetch(*tensors):
-    """One device -> host copy of all `tensors`, counted in `fetches`."""
+    """One device -> host copy of all `tensors`, counted in `fetches` (and
+    by the tracer, from a card, as gl.FETCH)."""
     global fetches
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu()
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if tracing.active() and flat.device.type != "cpu":
+        tracing.add(gl.FETCH)
+    flat = flat.cpu()
     fetches += 1
     parts = torch.split(flat, [t.numel() for t in tensors])
     return [p.reshape(t.shape) for p, t in zip(parts, tensors)]

@@ -8,7 +8,10 @@ Counterpart of ``latticeum_tpu/zkvm/cli.py``: loads the guest into a VM,
 folds every executed instruction into the running LatticeFold accumulator
 with ``TorchZkVmProver`` on one CUDA card (``--device cpu`` runs the plain
 torch versions of the kernels on the CPU instead), prints each step's time
-and ends with one JSON line.
+and ends with one JSON line.  With LATTICEUM_TRACE=1 it prints the
+tracer's summary before that line: seconds and calls by span path, and the
+counters' totals (host challenger permutations, kernel launches, device ->
+host fetches, transcript seconds).
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ def main(argv=None):
                             checkpoint_dir=args.checkpoint_dir,
                             resume=args.resume)
     total = time.time() - t0
+    from ..host.utils import tracing
+    if tracing.ENV:
+        print(tracing.GLOBAL.summary(), flush=True)
     print(json.dumps({
         "steps_folded": state.steps,
         "result": hex(vm.result()),

@@ -69,8 +69,9 @@ import torch
 
 from ..crypto import challenger
 from ..field import fq3, goldilocks as gl
-from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
-                       route as _route, stream as _stream)
+from ..kernels import (check as _check, counted as _counted,
+                       launch as _launch, ptr as _ptr, route as _route,
+                       stream as _stream)
 from ..ring import rq
 from . import tables
 
@@ -615,7 +616,12 @@ def fold_c_end(c2r, eqs, t_s, r3, E):
     return out
 
 
-WRAPPERS = (fold_round0, fold_roundr, lin_round0, lin_roundr)
+WRAPPERS = (_counted(fold_round0, "lt_fold_round0"),
+            _counted(fold_roundr, "lt_fold_roundr"),
+            _counted(lin_round0, "lt_lin_round0"),
+            _counted(lin_roundr, "lt_lin_roundr"))
+_counted(lin_recon_tail, "lt_lin_recon_tail")
+_counted(fold_c_round, "lt_fold_c_round", "lt_pair_sum", "lt_fold_c_end")
 TWINS = {fold_round0: fold_round0_twin, fold_roundr: fold_roundr_twin,
          lin_round0: lin_round0_twin, lin_roundr: lin_roundr_twin}
 

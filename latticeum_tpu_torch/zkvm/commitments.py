@@ -11,8 +11,6 @@ hash, memory-op chain, state/acc/step commitments) is the host copy's.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -20,6 +18,7 @@ from ..crypto.poseidon2 import (hash_rows_narrow, merkle_levels,
                                merkle_levels_rows)
 from ..field import goldilocks as gl
 from ..host.crypto import poseidon2_ref as p2
+from ..host.utils import tracing
 from ..host.zkvm import commitments as host_comm
 
 
@@ -65,24 +64,6 @@ class ZkVmCommitter(host_comm.ZkVmCommitter):
         return _root(merkle_levels_rows(code_rows(code_bytes, self.device)))
 
 
-def stopwatch(device, timings):
-    """mark(key): wait for `device`, then append the host seconds since the
-    previous mark to timings[key].  Without `timings` a mark does nothing
-    (and does not wait)."""
-    device = torch.device(device)
-    last = [time.perf_counter()]
-
-    def mark(key):
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timings.setdefault(key, []).append(now - last[0])
-        last[0] = now
-    return mark
-
-
 class IncrementalMemTree:
     """Merkle tree over memory pages with O(log n) updates per write.
 
@@ -90,22 +71,30 @@ class IncrementalMemTree:
     lists once; each write then rehashes one page and its path on the host,
     as the JAX package's tree does.  With `timings` (a dict of lists), the
     build records its parts under "trees.page_copy", "trees.upload",
-    "trees.sponge", "trees.levels" and "trees.fetch"."""
+    "trees.sponge", "trees.levels" and "trees.fetch", each a span of that
+    name that waits for the device as it closes."""
 
     PARTS = ("page_copy", "upload", "sponge", "levels", "fetch")
 
     def __init__(self, vm, device, timings=None):
-        mark = stopwatch(device, timings)
-        words = page_words(vm)
-        mark("trees.page_copy")
-        rows = torch.from_numpy(words).to(device)
-        mark("trees.upload")
-        leaves = hash_rows_narrow(rows)
-        mark("trees.sponge")
-        levels = merkle_levels(leaves)
-        mark("trees.levels")
-        self.levels = [gl.to_int_lists(lv) for lv in levels]
-        mark("trees.fetch")
+        device = torch.device(device)
+        wait = (lambda: torch.cuda.synchronize(device)) if (
+            timings is not None and device.type == "cuda") else None
+
+        def part(name):
+            return tracing.span("trees." + name, timings, "trees." + name,
+                                wait)
+
+        with part("page_copy"):
+            words = page_words(vm)
+        with part("upload"):
+            rows = torch.from_numpy(words).to(device)
+        with part("sponge"):
+            leaves = hash_rows_narrow(rows)
+        with part("levels"):
+            levels = merkle_levels(leaves)
+        with part("fetch"):
+            self.levels = [gl.to_int_lists(lv) for lv in levels]
         self.vm = vm
 
     def update_page(self, page_index: int):

@@ -14,6 +14,15 @@ there through the sponge8 and perm8 kernels (``commitments.py``);
 before the commit (``timings["relation_check"]``) and every fold against
 the host NIFS verifier (``timings["native_verify"]``).
 
+Each step is the tracer's span ``step`` (``host/utils/tracing.py``), its
+layers the spans ``step.memtree`` (the page update and the memory-op
+chain, ``timings["memtree"]``), ``step.arithmetize`` (``arithmetize``
+alone), ``step.commit_z``, ``step.fold`` (``timings["fold_total"]``, with
+``TorchNifs.prove``'s ``nifs.*`` inside), ``step.collector``,
+``step.state_comms`` (the state, accumulator and step commitments) and
+``step.checkpoint``; each but the last appends its seconds to
+``timings`` under its key, traced or not.
+
     TorchZkVmProver(device="cuda").prove_vm(vm, max_steps=...)
 """
 
@@ -35,6 +44,7 @@ from ..host.field import host as H
 from ..host.nifs import nifs as nifs_mod
 from ..host.nifs.nifs import DecompositionParams
 from ..host.nifs.structs import CCCS
+from ..host.utils import tracing
 from ..host.zkvm import checkpoint as ckpt
 from ..host.zkvm.builder import create_riscv_ccs
 from ..host.zkvm.collect import generate_verification_witness_vars
@@ -208,15 +218,23 @@ class TorchZkVmProver:
             step = trace.cycle + 1
             if max_steps is not None and step > max_steps:
                 raise StopIteration
-            t0 = time.time()
-            mem_op = trace.side_effects.memory_op
+            with tracing.span(tracing.STEP):
+                fold_step(step, trace, vm_ref)
+            if on_step:
+                on_step(step, state)
+
+        def fold_step(step, trace, vm_ref):
+            t0 = time.perf_counter()
             nonlocal mem_comm, mem_ops_comm
-            if mem_op is not None:
-                page_idx, _ = vm_ref.physical_addr(mem_op.address & ~0b11)
-                mem_tree.update_page(page_idx)
-                mem_comm = mem_tree.root
-                mem_ops_comm = committer.vm_mem_ops_vec_comm(mem_ops_comm,
-                                                             mem_op)
+            with self._span("step.memtree", "memtree"):
+                mem_op = trace.side_effects.memory_op
+                if mem_op is not None:
+                    page_idx, _ = vm_ref.physical_addr(
+                        mem_op.address & ~0b11)
+                    mem_tree.update_page(page_idx)
+                    mem_comm = mem_tree.root
+                    mem_ops_comm = committer.vm_mem_ops_vec_comm(
+                        mem_ops_comm, mem_op)
 
             inp = IVCStepInput(
                 ivc_step_comm=state.ivc_step_comm,
@@ -229,43 +247,34 @@ class TorchZkVmProver:
                 w_acc=state.w_acc,
                 trace=trace,
             )
-
-            def mark(name, _t=[t0]):
-                now = time.time()
-                self.timings.setdefault(name, []).append(now - _t[0])
-                if self.log:
-                    self.log(f" step.{name}: {now-_t[0]:.2f}s")
-                _t[0] = now
-
-            z = arithmetize(inp, self.layout)
-            mark("arithmetize")
+            with self._span("step.arithmetize", "arithmetize"):
+                z = arithmetize(inp, self.layout)
             if self.debug:
-                self.check_relation(z, trace)
-                mark("relation_check")
-            cm_i, w_i = self.commit_z(z)
-            mark("commit_z")
-            folded_acc, folded_w, proof = self.fold(state.acc, state.w_acc,
-                                                    cm_i, w_i)
-            mark("fold_total")
+                with self._span("step.relation_check", "relation_check"):
+                    self.check_relation(z, trace)
+            with self._span("step.commit_z", "commit_z"):
+                cm_i, w_i = self.commit_z(z)
+            with self._span("step.fold", "fold_total"):
+                folded_acc, folded_w, proof = self.fold(
+                    state.acc, state.w_acc, cm_i, w_i)
             if self.debug:
-                if self.verify_fold(state.acc, cm_i, proof) != folded_acc:
-                    raise AssertionError(f"fold of step {step}: the host "
-                                         "NIFS verifier disagrees")
-                mark("native_verify")
+                with self._span("step.native_verify", "native_verify"):
+                    if self.verify_fold(state.acc, cm_i, proof) != folded_acc:
+                        raise AssertionError(f"fold of step {step}: the host "
+                                             "NIFS verifier disagrees")
             # replay the prover's recorded transcript samples (bit-exact)
             samples = self._last_fold_samples
-            fvars = generate_verification_witness_vars(
-                state.acc, cm_i, proof, self.ccs, self.dp,
-                lambda: ReplayTranscript(samples))
-            mark("collector")
-
-            state_i_comm = self._state_comm(code_comm, trace.output.pc,
-                                            mem_comm, trace.output.regs,
-                                            mem_ops_comm)
-            mark("state_comms")
-            acc_comm = committer.acc_comm(folded_acc)
-            step_comm = committer.ivc_step_comm(step, state.z_0_comm,
-                                                state_i_comm, acc_comm)
+            with self._span("step.collector", "collector"):
+                fvars = generate_verification_witness_vars(
+                    state.acc, cm_i, proof, self.ccs, self.dp,
+                    lambda: ReplayTranscript(samples))
+            with self._span("step.state_comms", "state_comms"):
+                state_i_comm = self._state_comm(
+                    code_comm, trace.output.pc, mem_comm, trace.output.regs,
+                    mem_ops_comm)
+                acc_comm = committer.acc_comm(folded_acc)
+                step_comm = committer.ivc_step_comm(step, state.z_0_comm,
+                                                    state_i_comm, acc_comm)
             state.ivc_step_comm = step_comm
             state.ivc_step = step
             state.z_i_comm = state_i_comm
@@ -275,14 +284,14 @@ class TorchZkVmProver:
             state.folding_proof = proof
             state.folding_proof_vars = fvars
             steps[0] = step
-            self.timings.setdefault("step_times", []).append(time.time() - t0)
+            self.timings.setdefault("step_times", []).append(
+                time.perf_counter() - t0)
             if checkpoint_dir and step % checkpoint_every == 0:
-                os.makedirs(checkpoint_dir, exist_ok=True)
-                self.save_checkpoint(os.path.join(
-                    checkpoint_dir, f"ivc_step_{step}.npz"), state, vm_ref,
-                    mem_ops_comm)
-            if on_step:
-                on_step(step, state)
+                with tracing.span("step.checkpoint"):
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    self.save_checkpoint(os.path.join(
+                        checkpoint_dir, f"ivc_step_{step}.npz"), state,
+                        vm_ref, mem_ops_comm)
 
         try:
             vm.run(intercept, start_cycle=start_cycle)
@@ -290,6 +299,11 @@ class TorchZkVmProver:
             pass
         state.steps = steps[0]
         return state
+
+    def _span(self, name, key):
+        """A span of the step that appends its seconds to timings[key]; a
+        line to the prover's log as it closes, where one was given."""
+        return tracing.span(name, self.timings, key, log=self.log)
 
     def _state_comm(self, code_comm, pc, mem_comm, regs, mem_ops_comm):
         regs_c = hash_wide(list(regs))

@@ -32,8 +32,9 @@ import torch
 
 from ..field import fq3, goldilocks as gl
 from ..host.field import host as H
-from ..kernels import (check as _check, launch as _launch, ptr as _ptr,
-                       route as _route, stream as _stream)
+from ..kernels import (check as _check, counted as _counted,
+                       launch as _launch, ptr as _ptr, route as _route,
+                       stream as _stream)
 from ..ring import rq
 
 
@@ -175,7 +176,8 @@ def head_alpha(tail, alpha, c1, c2):
     return c1, c2
 
 
-KERNELS = (eq_table, head_alpha)
+KERNELS = (_counted(eq_table, "lt_eq_table"),
+           _counted(head_alpha, "lt_head_alpha"))
 
 
 def reset_launches():

@@ -7,6 +7,7 @@ of a real guest, two chained host NIFS folds of the test fixtures, and the
 zkVM commitments.  Tolerance: none (exact integers).  The two packages'
 objects are different classes, so they are compared field by field."""
 
+import ast
 import dataclasses
 from pathlib import Path
 
@@ -195,15 +196,34 @@ def test_commitments_match_jax(nifs_pair, which):
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _api(path):
+    """The top-level names of a module, and the methods of its classes."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            out |= {f"{node.name}.{f.name}" for f in node.body
+                    if isinstance(f, ast.FunctionDef)}
+        if isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return out
+
+
 @pytest.mark.parametrize("rel", ["ring/models.py", "nifs/generic.py",
                                  "nifs/serialize.py", "utils/security.py",
                                  "utils/tracing.py"])
 def test_copy_is_verbatim(rel):
-    """The ring models, the generic NIFS, the proof encoding, the MSIS
-    check and the tracer are copied unchanged: each reads its imports
-    relative to the host tree, which keeps the original's layout.  Their
-    behaviour against the originals: tests/test_torch_ring_models.py,
-    tests/test_torch_generic_nifs.py, tests/test_torch_serialize.py."""
+    """The ring models, the generic NIFS, the proof encoding and the MSIS
+    check are copied unchanged: each reads its imports relative to the
+    host tree, which keeps the original's layout.  The tracer is the
+    port's own, extended in place: it keeps every name and method of the
+    original.  Their behaviour against the originals:
+    tests/test_torch_ring_models.py, tests/test_torch_generic_nifs.py,
+    tests/test_torch_serialize.py."""
     ours = ROOT / "latticeum_tpu_torch" / "host" / rel
     theirs = ROOT / "latticeum_tpu" / rel
-    assert ours.read_text() == theirs.read_text()
+    if rel == "utils/tracing.py":
+        assert _api(theirs) <= _api(ours)
+    else:
+        assert ours.read_text() == theirs.read_text()
