@@ -25,6 +25,11 @@ i - 1 and judges everything step i produced from it.
 - *checkpoint*: the file the program last wrote in the window, read back,
   must hold the reference's state of its step.
 
+The reference's Ajtai matrix is the configuration's scheme kind (SCHEMES)
+drawn from the run's seed as the program draws it; under the dense kind
+its commitments take an exact float64 product in place of the slot-wise
+matvec (`ref/commit/ajtai.py`, `commit_dense`), which stays the definition.
+
 Every reading is a count of mismatches, an exact comparison: its limit
 is 0.
 """
@@ -183,17 +188,26 @@ def replay(inputs, wanted, ckpt_step=None):
     return got, z0, snap
 
 
-class Reference:
-    """The frozen reference at one parameter set and Ajtai seed."""
+# a configuration's Ajtai scheme kind -> the reference's matrix from the seed
+SCHEMES = {"row_constant": AjtaiScheme.from_seed,
+           "general": AjtaiScheme.from_seed_general}
 
-    def __init__(self, params, scheme_seed):
+
+class Reference:
+    """The frozen reference at one parameter set, Ajtai scheme kind (a key
+    of SCHEMES) and Ajtai seed."""
+
+    def __init__(self, params, scheme_seed, scheme):
         self.params = params
         self.layout = CCSLayout(params)
         self.ccs = create_riscv_ccs(self.layout)
         self.dp = ref_nifs.DecompositionParams(
             B=params.B, L=params.L, B_SMALL=params.B_SMALL, K=params.K)
-        self.scheme = AjtaiScheme.from_seed(
+        t = time.perf_counter()
+        self.scheme = SCHEMES[scheme](
             params.KAPPA, self.layout.w_size * params.L, seed=scheme_seed)
+        # seconds spent on the Ajtai matrix and the commitments under it
+        self.ajtai_s = time.perf_counter() - t
         self.committer = rc.ZkVmCommitter()
         # the CCS's entries, all matrices, for the evaluation claims
         rows, cols, mats, lo, hi = [], [], [], [], []
@@ -218,7 +232,14 @@ class Reference:
 
     def commit(self, w_ccs_limbs):
         wit = Witness.from_w_ccs(w_ccs_limbs, self.params.B, self.params.L)
-        return self.scheme.commit_host(wit.f)
+        return self.ajtai_commit(wit)
+
+    def ajtai_commit(self, wit):
+        """The Ajtai commitment of a reference Witness, host ints."""
+        t = time.perf_counter()
+        cm = self.scheme.commit_coeff(wit.f_coeff, wit.f)
+        self.ajtai_s += time.perf_counter() - t
+        return cm
 
     def claims_u(self, point, z):
         """u_j = <M_j^T eq(point), z> for every CCS matrix j, summed over
@@ -249,7 +270,7 @@ class Reference:
         bad += int(np.any(mag >= np.uint64(self.params.B)))
         wit = Witness.from_f_coeff(u64_limbs(f_coeff), self.params.B,
                                    self.params.L)
-        bad += self.scheme.commit_host(wit.f) != [list(c) for c in acc.cm]
+        bad += self.ajtai_commit(wit) != [list(c) for c in acc.cm]
         point = [H.ntt_slots(r)[0] for r in acc.r]
         bad += evaluate_mles_host(wit.f_hat, point) != [list(v)
                                                         for v in acc.v]
@@ -278,6 +299,7 @@ def judge(ref, inputs, records, checked, ckpt=None, start=None):
         if bad["witness"]:
             failed.add(0)
     if not checked:
+        seconds["ajtai"] = ref.ajtai_s
         return bad, seconds, failed
     t = time.perf_counter()
     wanted = set(checked) | {i - 1 for i in checked if i > 1}
@@ -358,6 +380,7 @@ def judge(ref, inputs, records, checked, ckpt=None, start=None):
         seconds["checkpoint"] = time.perf_counter() - t
         if bad["checkpoint"]:
             failed.add(ckpt[0])
+    seconds["ajtai"] = ref.ajtai_s
     return bad, seconds, failed
 
 

@@ -38,7 +38,13 @@ GUESTS = {"fib_loop": assembler.fib_loop_guest,
 
 class Refused(Exception):
     """The run cannot be made here (no card, a cell not in the
-    manifest): exit without a result."""
+    manifest, a configuration the harness cannot build): exit without a
+    result."""
+
+
+# a configuration's Ajtai scheme kind -> the prover's keyword arguments
+# (the reference builds the same kind: check.SCHEMES)
+SCHEMES = {"row_constant": {}, "general": {"general_ajtai": True}}
 
 
 # -- what a cell is made of ------------------------------------------------
@@ -63,6 +69,21 @@ def cell_files(name, bench=None):
                if name in m.get("workloads", [name] if m["moves"] in e2e
                                 else [])]
     return w, config, mix, metrics
+
+
+def scheme(config):
+    """(kind, the prover's keyword arguments) of the configuration's Ajtai
+    scheme `{"kind": ..., "seed": "--seed"}`.  A kind missing or unknown,
+    or a seed other than the run's, is refused: no scheme is assumed."""
+    sch = config.get("scheme") or {}
+    kind = sch.get("kind")
+    if kind not in SCHEMES:
+        raise Refused(f"configuration {config.get('name')!r}: Ajtai scheme "
+                      f"kind {kind!r} is not one of {sorted(SCHEMES)}")
+    if sch.get("seed") != "--seed":
+        raise Refused(f"configuration {config.get('name')!r}: Ajtai scheme "
+                      f"seed {sch.get('seed')!r}, not \"--seed\"")
+    return kind, dict(SCHEMES[kind])
 
 
 def end_to_end(name, bench=None):
@@ -235,6 +256,7 @@ def run(name, seed, seconds, trace, t_start, fault=None, log=None):
     mismatches by kind, the window's trace or None)."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     w, config, mix, metrics = cell_files(name)
+    kind, scheme_kw = scheme(config)
     import torch
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < w["chips"]:
@@ -268,8 +290,10 @@ def run(name, seed, seconds, trace, t_start, fault=None, log=None):
         log(f"kernels ready in {time.perf_counter() - t:.3f} s "
             f"(built: {kernels.build_info.get('seconds')})")
         t = time.perf_counter()
-        prover = TorchZkVmProver(params, scheme_seed=seed, device="cuda")
-        log(f"prover built in {time.perf_counter() - t:.3f} s")
+        prover = TorchZkVmProver(params, scheme_seed=seed, device="cuda",
+                                 **scheme_kw)
+        log(f"prover built in {time.perf_counter() - t:.3f} s ({kind} "
+            f"Ajtai scheme, {scheme_kw})")
         vm = VM(data["words_per_page"], data["page_count"])
         vm.load_elf_data(data["elf"])
         for addr, word in data["heap"]:
@@ -398,7 +422,7 @@ def run(name, seed, seconds, trace, t_start, fault=None, log=None):
         del prover, st, vm, on_step, commit_z, initialize_accumulator
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        ref = check.Reference(params, seed)
+        ref = check.Reference(params, seed, kind)
         log(f"reference built in {time.perf_counter() - t:.3f} s")
         bad, secs, failed = check.judge(ref, data, records, checked, ck,
                                         start)

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from zkbench import harness, spans
+from zkbench import check, harness, spans
 
 BENCH = json.loads(harness.MANIFEST.read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -19,6 +19,7 @@ def test_cell_loads_by_name(cell):
     assert cell == f"{w['config']}.{w['traffic']}"
     assert config["name"] == w["config"]
     assert config["guest"] in harness.GUESTS
+    assert harness.scheme(config)[0] in check.SCHEMES
     assert mix["warmup_steps"] >= 1 and mix["checked_steps"] >= 1
     data = harness.inputs(config, mix, 2**31 + 12345)
     assert data["elf"][:4] == b"\x7fELF"

@@ -2,7 +2,7 @@
 transcript against the program's native core, its page tree and state
 commitments against the program's host copy, its evaluation claims
 against the dense M^T eq product, and its opening check on a witness it
-built, once sound and once broken."""
+built, once sound and once broken, under each Ajtai scheme kind."""
 
 import random
 
@@ -24,8 +24,14 @@ SMALL = dict(B=1 << 16, L=4, B_SMALL=4, K=8, KAPPA=8)
 
 
 @pytest.fixture(scope="module")
-def ref():
-    return check.Reference(resolve(**SMALL), scheme_seed=2**31 + 99)
+def refs():
+    return {k: check.Reference(resolve(**SMALL), scheme_seed=2**31 + 99,
+                               scheme=k) for k in check.SCHEMES}
+
+
+@pytest.fixture(scope="module")
+def ref(refs):
+    return refs["row_constant"]
 
 
 def test_poseidon2_and_transcript_equal_the_programs_native_core():
@@ -133,7 +139,10 @@ def opened(ref, rng):
     return acc, f_coeff
 
 
-def test_a_witness_opens_its_accumulator_and_a_changed_one_does_not(ref):
+@pytest.mark.parametrize("kind", sorted(check.SCHEMES))
+def test_a_witness_opens_its_accumulator_and_a_changed_one_does_not(refs,
+                                                                    kind):
+    ref = refs[kind]
     rng = np.random.default_rng(6)
     acc, f_coeff = opened(ref, rng)
     assert ref.opens(acc, f_coeff) == 0
