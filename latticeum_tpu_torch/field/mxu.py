@@ -223,6 +223,12 @@ def contract(pa: Planes, pb: Planes):
     return out
 
 
+def contract_gemms(pb: Planes):
+    """The ``torch._int_mm`` launches ``contract(pa, pb)`` makes: one a
+    slot a chunk."""
+    return 8 * -(-pb.n_pad // pb.chunk)
+
+
 def ring_contract(A, B, t_layout=False):
     """Batched ring inner products: A (t, n, 24) and B (kb, n, 24), or both
     (t, 24, n) and (kb, 24, n) with t_layout -> (t, kb, 24) with

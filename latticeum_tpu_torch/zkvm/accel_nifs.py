@@ -204,11 +204,19 @@ class TorchNifs:
     def _commit_many(self, fs):
         """Ajtai commitments of the witnesses fs (B, n, 24) ->
         (B, kappa, 24): the row-constant shortcut on their sums, or the
-        dense matvec as one digit-plane contraction."""
-        if self.general_ajtai:
-            return mxu.contract(self._ajtai_planes,
-                                mxu.digit_split(fs)).transpose(0, 1)
-        return row_constant_commits(self.ajtai_rows, fs)
+        dense matvec as one digit-plane contraction.  The contraction is
+        the span ``ajtai.dense`` (it does not wait for the device); with
+        the tracer on it adds the B witnesses to ``ajtai.dense.witnesses``
+        and its ``torch._int_mm`` launches to ``ajtai.dense.gemms``."""
+        if not self.general_ajtai:
+            return row_constant_commits(self.ajtai_rows, fs)
+        with tracing.span("ajtai.dense"):
+            planes = mxu.digit_split(fs)
+            cms = mxu.contract(self._ajtai_planes, planes).transpose(0, 1)
+        if tracing.active():
+            tracing.add("ajtai.dense.witnesses", fs.shape[0])
+            tracing.add("ajtai.dense.gemms", mxu.contract_gemms(planes))
+        return cms
 
     def commit(self, f):
         """Ajtai commitment of f (n, 24) -> host rings (kappa x 24 ints)."""
